@@ -1,0 +1,99 @@
+"""Architecture configuration schema — the subset of ``repro/configs/base.py``
+the VQ-Transformer serving path needs (``ArchConfig``, ``LayerCfg``,
+``uniform_stages``, ``reduce_for_smoke``).
+
+The reference module imports ``core/vq`` and through it jax, so the port
+keeps its own copy. Field names and defaults match the reference so one
+configuration means the same model in both packages. The layer list is
+expressed as *stages*: ``(pattern, repeat)`` where pattern is a tuple of
+``LayerCfg``; parameters of a stage are stacked over ``repeat``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+from repro_torch.core.vq import VQConfig
+
+
+@dataclass(frozen=True)
+class LayerCfg:
+    mixer: str  # 'gqa' is the only mixer the port serves so far
+    ffn: str  # 'gelu' | 'relu' | 'relu2' | ...
+    window: Optional[int] = None  # sliding-window size; None = global
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    stages: Tuple[Tuple[Tuple[LayerCfg, ...], int], ...]
+    head_dim: Optional[int] = None
+    norm: str = "rmsnorm"
+    pos: str = "rope"  # 'rope' | 'learned' | 'sampled' | 'none'
+    rope_theta: float = 10000.0
+    max_seq: int = 131072
+    pos_pool: int = 0  # for pos == 'sampled'
+    attn_softmax: bool = True  # False -> element-wise σ (VQT, paper eq. 1)
+    attn_bias: bool = False
+    vqt: Optional[VQConfig] = None
+    tie_embeddings: bool = False
+    # citation for the config values
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    def layer_list(self) -> list[LayerCfg]:
+        out = []
+        for pattern, repeat in self.stages:
+            for _ in range(repeat):
+                out.extend(pattern)
+        return out
+
+    def validate(self) -> "ArchConfig":
+        if len(self.layer_list()) != self.n_layers:
+            raise ValueError(
+                f"{self.name}: stages produce {len(self.layer_list())} layers, "
+                f"config says {self.n_layers}")
+        return self
+
+
+def uniform_stages(layer: LayerCfg, n_layers: int):
+    return (((layer,), n_layers),)
+
+
+def reduce_for_smoke(cfg: ArchConfig, *, d_model: int = 256, n_layers: int = 2,
+                     n_heads: int = 4, n_kv_heads: int = 2, d_ff: int = 512,
+                     vocab: int = 512, max_seq: int = 128) -> ArchConfig:
+    """Produce a reduced same-family variant (<=2 layers, d<=512), exactly
+    as the reference does for the dense VQT family."""
+    changes = dict(
+        name=cfg.name + "-smoke",
+        d_model=d_model,
+        n_layers=n_layers,
+        n_heads=n_heads,
+        n_kv_heads=min(n_kv_heads, n_heads),
+        d_ff=d_ff,
+        vocab=vocab,
+        max_seq=max_seq,
+        head_dim=None,
+    )
+    if cfg.pos == "sampled":
+        changes["pos_pool"] = max_seq * 16
+    # Rebuild stages with the same *kind* of pattern but n_layers layers.
+    first_layer = cfg.layer_list()[0]
+    last_layer = cfg.layer_list()[-1]
+    window = 64 if any(l.window for l in cfg.layer_list()) else None
+    lo = dataclasses.replace(first_layer, window=window if first_layer.window else None)
+    hi = dataclasses.replace(last_layer, window=window if last_layer.window else None)
+    changes["stages"] = (((lo,), 1), ((hi,), n_layers - 1)) if n_layers > 1 else (((lo,), 1),)
+    return dataclasses.replace(cfg, **changes).validate()

@@ -1,0 +1,7 @@
+from repro_torch.serving.batch_engine import (  # noqa: F401
+    BatchedJitEngine, stack_states, unstack_state,
+)
+from repro_torch.serving.batch_server import BatchServer, BatchStats  # noqa: F401
+from repro_torch.serving.jit_engine import (  # noqa: F401
+    JitIncrementalEngine, JitState, weights_from_params,
+)

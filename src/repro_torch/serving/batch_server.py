@@ -1,0 +1,595 @@
+"""Multi-document edit serving over the batched engine — the edit path of
+``repro/serving/batch_server.py`` on PyTorch.
+
+The scheduler is the reference's (read its module docstring): documents
+live in slot buffers padded to capacity classes; clients submit replace /
+insert / delete edits in sequence coordinates; ``step()`` peels each ready
+document's longest same-op FIFO prefix (up to ``C`` edits) into a typed
+bucket, groups documents by ``(n_cap, C, R, op)`` and serves each group
+chunk with ONE ``batch_apply_edits`` dispatch (one ``fused_step`` kernel
+launch per layer for the whole chunk). Structural slow paths: **grow**
+(slot buffer full: ``pad_state`` on the device), **defrag** (position-id
+gap exhausted: ``gather_slots`` + re-spread + ``full_forward``) and the
+**overflow fallback** (a full forward, then the document's row capacity
+``R`` doubles). A failed take or dispatch rolls every unserved document back
+to its pre-take snapshot.
+
+Not ported yet (later slices): suggestion subscriptions, the serving mesh,
+the warm/cold tiers and budgets, the persistent compilation cache, and
+``checkpoint_document`` / ``export_document`` / ``import_document``.
+
+Host mirrors are copied to the device with ``torch.tensor`` (never
+``torch.from_numpy``, which would share storage with a mirror the next take
+mutates). The one host read per dispatch is the overflow vector.
+"""
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.common.bucketing import capacity_class, next_pow2
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.edits import Edit
+from repro_torch.core.positional import PositionAllocator
+from repro_torch.serving.batch_engine import (
+    BatchedJitEngine, stack_states, unstack_state,
+)
+from repro_torch.serving.jit_engine import (
+    OP_DELETE, OP_INSERT, OP_REPLACE, JitState, state_nbytes_for,
+)
+from repro_torch.serving.state_store import StateStore
+
+_OPCODE = {"replace": OP_REPLACE, "insert": OP_INSERT, "delete": OP_DELETE}
+
+
+@dataclass
+class BatchStats:
+    docs: int = 0
+    edits_submitted: int = 0
+    edits_applied: int = 0
+    batch_steps: int = 0  # batched edit dispatches issued
+    batched_docs: int = 0  # sum of dispatch group sizes
+    overflows: int = 0
+    full_forwards: int = 0  # ingests + overflow/defrag/grow re-ingests
+    defrags: int = 0  # gap exhaustion -> position-id re-spread
+    grows: int = 0  # slot buffer full -> capacity-class jump
+    device_defrags: int = 0  # defrags served by gather_slots + full_forward
+    device_grows: int = 0  # grows served by pad_state (no re-ingest)
+    traced_shapes: int = 0  # distinct step shapes seen (ingest, edit, pad)
+    closes: int = 0  # close_document calls (docs stays = documents opened)
+    bytes_hot: int = 0  # device-resident document states
+    docs_hot: int = 0
+
+    @property
+    def mean_batch(self) -> float:
+        return self.batched_docs / max(self.batch_steps, 1)
+
+
+@dataclass
+class _BatchDoc:
+    doc_id: str
+    tokens: np.ndarray  # [n_cap] int32 slot buffer, host-side source of truth
+    valid: np.ndarray  # [n_cap] bool
+    positions: np.ndarray  # [n_cap] int32 (gapped ids; free slots: sentinel)
+    slots: list  # sequence index -> slot (the host's order oracle)
+    free: list  # free slot indices
+    n_cap: int
+    row_capacity: int  # per-document R; doubles on overflow
+    allocator: PositionAllocator  # sequence-ordered gapped position ids
+    state: Optional[JitState]  # device state at padded shape
+    state_epoch: int = 0  # bumped on every content-CHANGING state replacement
+    pending: deque = field(default_factory=deque)  # FIFO of (op, pos, tok)
+    n_virtual: int = 0  # length after every queued edit applies
+
+    @property
+    def n(self) -> int:  # real length
+        return len(self.slots)
+
+    def seq_tokens(self) -> np.ndarray:
+        return self.tokens[np.asarray(self.slots, np.int64)]
+
+
+class BatchServer:
+    """Full-edit-algebra serving for many documents over one batched engine."""
+
+    def __init__(self, params: dict, cfg: ArchConfig, *, edit_capacity: int = 8,
+                 row_capacity: int = 64, max_batch: int = 8,
+                 min_doc_capacity: int = 16, use_fused_kernel: bool = True,
+                 delta_threshold: float = 0.0, capacity_class_step: int = 4,
+                 device_grow: bool = True, device_defrag: bool = True,
+                 pos_pool: Optional[int] = None, device="cuda"):
+        """``use_fused_kernel`` (default on, as in the reference) routes each
+        layer's patch + requantize through one ``fused_step`` kernel launch;
+        ``delta_threshold`` is the served tolerance (0.0 serves bit-exactly
+        like the ungated engine); ``capacity_class_step`` spaces the document
+        capacity classes; ``device_grow`` / ``device_defrag`` serve the
+        structural slow paths on the device instead of host re-ingests."""
+        if max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        if capacity_class_step < 2:
+            raise ValueError("capacity_class_step must be >= 2")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.C = next_pow2(edit_capacity)
+        self.R = next_pow2(row_capacity)
+        self.max_batch = max_batch
+        self.min_doc_capacity = next_pow2(min_doc_capacity)
+        self.use_fused_kernel = use_fused_kernel
+        self.delta_threshold = float(delta_threshold)
+        self.capacity_class_step = capacity_class_step
+        self.device_grow = device_grow
+        self.device_defrag = device_defrag
+        self.pos_pool = pos_pool or (cfg.pos_pool if cfg.pos_pool else cfg.max_seq)
+        base = BatchedJitEngine(params, cfg, edit_capacity=self.C,
+                                row_capacity=self.R,
+                                use_fused_kernel=use_fused_kernel,
+                                delta_threshold=self.delta_threshold,
+                                device=self.device)
+        self._weights = base.weights
+        self._engines: dict[tuple[int, int], BatchedJitEngine] = {
+            (self.C, self.R): base}
+        self._shapes_seen: set = set()
+        self.docs: dict[str, _BatchDoc] = {}
+        self.stats = BatchStats()
+        self.store = StateStore(stats=self.stats)
+
+    # ------------------------------------------------------------- engines
+
+    def engine(self, edit_capacity: int, row_capacity: int) -> BatchedJitEngine:
+        """The per-capacity-bucket engine (cached; shares the weight stacks)."""
+        key = (edit_capacity, row_capacity)
+        if key not in self._engines:
+            self._engines[key] = BatchedJitEngine(
+                {}, self.cfg, edit_capacity=edit_capacity,
+                row_capacity=row_capacity,
+                use_fused_kernel=self.use_fused_kernel,
+                delta_threshold=self.delta_threshold, device=self.device,
+                _weights=self._weights)
+        return self._engines[key]
+
+    def _count_shape(self, shape: tuple) -> None:
+        if shape not in self._shapes_seen:
+            self._shapes_seen.add(shape)
+            self.stats.traced_shapes += 1
+
+    def padded_cap(self, n: int) -> int:
+        """The capacity class serving an ``n``-slot document: the smallest
+        ``min_doc_capacity * step^k >= n``."""
+        return capacity_class(n, self.min_doc_capacity,
+                              self.capacity_class_step)
+
+    def _padded_batch(self, chunk_len: int) -> int:
+        """Dispatch batch sizes are padded up to a power of two (capped at
+        ``max_batch``), so each capacity bucket sees O(log max_batch)
+        shapes."""
+        return min(next_pow2(chunk_len), self.max_batch)
+
+    @property
+    def _pos_sentinel(self) -> int:
+        # Free slots point at the last pool embedding: always in-bounds for
+        # the gather, >= every allocated id, and masked out by valid anyway.
+        return self.pos_pool - 1
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """An eager device copy of a (possibly live) host mirror."""
+        return torch.tensor(arr, device=self.device)
+
+    # ------------------------------------------------------------- documents
+
+    def open_document(self, doc_id: str, tokens: Sequence[int]) -> None:
+        self.open_documents({doc_id: tokens})
+
+    def open_documents(self, items: dict) -> None:
+        """Ingest a fleet at once: documents sharing a capacity class run
+        through ONE ``batch_full_forward`` dispatch (chunked by max_batch)."""
+        prepared = []
+        for doc_id, tokens in items.items():
+            if doc_id in self.docs:
+                raise KeyError(f"document {doc_id!r} already open")
+            n = len(tokens)
+            if n < 1:
+                raise ValueError("empty document")
+            toks = np.asarray(tokens, np.int32)
+            if not (0 <= toks.min() and toks.max() < self.cfg.vocab):
+                raise ValueError(
+                    f"document {doc_id!r} has tokens outside vocab of "
+                    f"{self.cfg.vocab}")
+            n_cap = self.padded_cap(n)
+            alloc = PositionAllocator(n, self.pos_pool)
+            padded = np.zeros(n_cap, np.int32)
+            padded[:n] = toks
+            valid = np.zeros(n_cap, bool)
+            valid[:n] = True
+            positions = np.full(n_cap, self._pos_sentinel, np.int32)
+            positions[:n] = alloc.snapshot()
+            prepared.append((doc_id, padded, valid, positions, n, n_cap, alloc))
+        eng = self.engine(self.C, self.R)
+        groups: dict[int, list] = {}
+        for p in prepared:
+            groups.setdefault(p[5], []).append(p)
+        for n_cap, members in sorted(groups.items()):
+            for lo in range(0, len(members), self.max_batch):
+                chunk = members[lo:lo + self.max_batch]
+                B_pad = self._padded_batch(len(chunk))
+                self.store.admit(
+                    len(chunk) * state_nbytes_for(n_cap, eng.L, eng.meta))
+                # filler rows repeat the first member; their output is dropped
+                row_of = chunk + [chunk[0]] * (B_pad - len(chunk))
+                bstate = eng.batch_full_forward(
+                    self._to_device(np.stack([c[1] for c in row_of])),
+                    self._to_device(np.stack([c[3] for c in row_of])),
+                    self._to_device(np.stack([c[2] for c in row_of])))
+                self._count_shape(("full", B_pad, n_cap))
+                for b, (doc_id, padded, valid, positions, n, n_cap,
+                        alloc) in enumerate(chunk):
+                    doc = _BatchDoc(
+                        doc_id=doc_id, tokens=padded, valid=valid,
+                        positions=positions, slots=list(range(n)),
+                        free=list(range(n_cap - 1, n - 1, -1)), n_cap=n_cap,
+                        row_capacity=min(self.R, n_cap), allocator=alloc,
+                        state=unstack_state(bstate, b), n_virtual=n)
+                    self.docs[doc_id] = doc
+                    self.store.register(doc)
+                    self.stats.docs += 1
+                    self.stats.full_forwards += 1
+
+    def close_document(self, doc_id: str) -> None:
+        """End a session: release the document's state and queue."""
+        doc = self.docs.pop(doc_id)  # KeyError for unknown ids
+        self.store.close(doc)
+        doc.pending.clear()
+        self.stats.closes += 1
+
+    def tier(self, doc_id: str) -> str:
+        """Residency tier of an open document (always "hot" so far)."""
+        if doc_id not in self.docs:
+            raise KeyError(doc_id)
+        return self.store.tier(doc_id)
+
+    # ------------------------------------------------------------- submits
+
+    def _check_tok(self, tok: int) -> None:
+        if not 0 <= tok < self.cfg.vocab:
+            raise ValueError(f"token {tok} outside vocab of {self.cfg.vocab}")
+
+    def submit_replace(self, doc_id: str, pos: int, tok: int) -> None:
+        doc = self.docs[doc_id]
+        if not 0 <= pos < doc.n_virtual:
+            raise IndexError(
+                f"pos {pos} out of range for doc of length {doc.n_virtual}")
+        self._check_tok(tok)
+        doc.pending.append(("replace", int(pos), int(tok)))
+        self.stats.edits_submitted += 1
+
+    def submit_insert(self, doc_id: str, pos: int, tok: int) -> None:
+        """Insert ``tok`` before sequence index ``pos`` (``pos == n``
+        appends). Positions refer to the sequence after every previously
+        queued edit applies, exactly like an edit script."""
+        doc = self.docs[doc_id]
+        if not 0 <= pos <= doc.n_virtual:
+            raise IndexError(
+                f"insert pos {pos} out of range for doc of length {doc.n_virtual}")
+        self._check_tok(tok)
+        doc.pending.append(("insert", int(pos), int(tok)))
+        doc.n_virtual += 1
+        self.stats.edits_submitted += 1
+
+    def submit_delete(self, doc_id: str, pos: int) -> None:
+        doc = self.docs[doc_id]
+        if not 0 <= pos < doc.n_virtual:
+            raise IndexError(
+                f"delete pos {pos} out of range for doc of length {doc.n_virtual}")
+        if doc.n_virtual <= 1:
+            raise ValueError("cannot delete the last remaining token")
+        doc.pending.append(("delete", int(pos), 0))
+        doc.n_virtual -= 1
+        self.stats.edits_submitted += 1
+
+    def submit_edit(self, doc_id: str, e: Edit) -> None:
+        """Submit a ``core.edits.Edit`` (op/pos/token) as queued traffic."""
+        if e.op == "replace":
+            self.submit_replace(doc_id, e.pos, e.token)
+        elif e.op == "insert":
+            self.submit_insert(doc_id, e.pos, e.token)
+        else:
+            self.submit_delete(doc_id, e.pos)
+
+    def pending_count(self) -> int:
+        return sum(len(d.pending) for d in self.docs.values())
+
+    # ------------------------------------------------------- snapshot/rollback
+
+    def _snapshot(self, doc: _BatchDoc) -> tuple:
+        return (doc.tokens.copy(), doc.valid.copy(), doc.positions.copy(),
+                list(doc.slots), list(doc.free), doc.n_cap, doc.row_capacity,
+                doc.allocator.snapshot(), doc.state, doc.state_epoch,
+                deque(doc.pending), doc.n_virtual)
+
+    def _restore(self, doc: _BatchDoc, snap: tuple) -> None:
+        (doc.tokens, doc.valid, doc.positions, doc.slots, doc.free, doc.n_cap,
+         doc.row_capacity, alloc_ids, state, epoch, doc.pending,
+         doc.n_virtual) = snap
+        doc.allocator.restore(alloc_ids)
+        # a mid-take grow/defrag replaced the device state: re-adopt the
+        # exact pre-take state the snapshot still references
+        if epoch != doc.state_epoch:
+            self.store.set_hot(doc, state)
+
+    # ------------------------------------------------------------- scheduling
+
+    def _take_bucket(self, doc: _BatchDoc):
+        """Pop the longest same-op FIFO prefix (up to C) into a typed edit
+        bucket, translating sequence coordinates to slots as each edit is
+        peeled. Host mirrors are updated here; the device catches up at
+        dispatch. Returns (op_kind, arrays, count)."""
+        kind = doc.pending[0][0]
+        slot_a = np.full(self.C, -1, np.int32)
+        tok_a = np.zeros(self.C, np.int32)
+        pos_a = np.zeros(self.C, np.int32)
+        op_a = np.full(self.C, _OPCODE[kind], np.int32)
+        i = 0
+        if kind == "replace":
+            # Same-slot conflicts stay queued for the next round; scanning
+            # stops at the first structural op (replaces do not commute
+            # across an insert/delete).
+            taken: set[int] = set()
+            kept: list = []
+            while doc.pending and i < self.C:
+                if doc.pending[0][0] != "replace":
+                    break
+                _, pos, tok = doc.pending.popleft()
+                s = doc.slots[pos]
+                if s in taken:
+                    kept.append(("replace", pos, tok))
+                    continue
+                taken.add(s)
+                slot_a[i] = s
+                tok_a[i] = tok
+                pos_a[i] = doc.positions[s]
+                doc.tokens[s] = tok
+                i += 1
+            for item in reversed(kept):
+                doc.pending.appendleft(item)
+        elif kind == "insert":
+            while doc.pending and i < self.C:
+                if doc.pending[0][0] != "insert":
+                    break
+                _, pos, tok = doc.pending[0]
+                need_grow = not doc.free
+                need_defrag = not doc.allocator.can_insert_at(pos)
+                if need_grow or need_defrag:
+                    if i > 0:
+                        break  # flush the partial bucket first
+                    if need_grow:
+                        self._grow(doc)
+                    if need_defrag:
+                        self._defrag(doc)
+                    if not doc.allocator.can_insert_at(pos):
+                        raise RuntimeError(
+                            f"position pool of {doc.allocator.pool_size} cannot "
+                            f"host a document of length {doc.n + 1}")
+                doc.pending.popleft()
+                pid = doc.allocator.insert_at(pos)
+                s = doc.free.pop()
+                doc.slots.insert(pos, s)
+                doc.tokens[s] = tok
+                doc.valid[s] = True
+                doc.positions[s] = pid
+                slot_a[i] = s
+                tok_a[i] = tok
+                pos_a[i] = pid
+                i += 1
+        else:  # delete
+            while doc.pending and i < self.C:
+                if doc.pending[0][0] != "delete":
+                    break
+                _, pos, _tok = doc.pending.popleft()
+                s = doc.slots.pop(pos)
+                doc.allocator.delete_at(pos)
+                doc.valid[s] = False
+                pos_a[i] = doc.positions[s]
+                slot_a[i] = s
+                doc.free.append(s)  # earliest reuse is the NEXT dispatch
+                i += 1
+        return kind, (slot_a, tok_a, pos_a, op_a), i
+
+    def step(self) -> int:
+        """One scheduling round of edit dispatches. Returns the number of
+        edits applied."""
+        ready = [d for d in self.docs.values() if d.pending]
+        takes = []  # (doc, kind, arrays, count)
+        undone: dict[int, tuple] = {}  # id(doc) -> (doc, snapshot)
+        applied = 0
+        try:
+            for d in ready:
+                snap = self._snapshot(d)
+                undone[id(d)] = (d, snap)
+                kind, arrays, count = self._take_bucket(d)
+                if count == 0:
+                    self._restore(d, snap)
+                    undone.pop(id(d))
+                    continue
+                takes.append((d, kind, arrays, count))
+            groups: dict[tuple, list] = {}
+            for t in takes:
+                groups.setdefault(
+                    (t[0].n_cap, self.C, t[0].row_capacity, t[1]),
+                    []).append(t)
+            for (n_cap, C, R, kind), members in sorted(groups.items(),
+                                                       key=lambda kv: kv[0]):
+                for lo in range(0, len(members), self.max_batch):
+                    chunk = members[lo:lo + self.max_batch]
+                    applied += self._dispatch(chunk, n_cap, C, R, kind)
+                    for t in chunk:
+                        undone.pop(id(t[0]), None)
+        except Exception:
+            # a failed take or dispatch must not lose edits: every document
+            # not yet served rolls back to its pre-take snapshot
+            for d, snap in undone.values():
+                self._restore(d, snap)
+            raise
+        return applied
+
+    def flush(self) -> int:
+        """Drain every queue; returns total edits applied."""
+        total = 0
+        while self.pending_count():
+            total += self.step()
+        return total
+
+    def _dispatch(self, chunk: list, n_cap: int, C: int, R: int,
+                  kind: str) -> int:
+        eng = self.engine(C, R)
+        docs = [t[0] for t in chunk]
+        buckets = [t[2] for t in chunk]
+        counts = [t[3] for t in chunk]
+        keep = frozenset(d.doc_id for d in docs)
+        states = [self.store.ensure_hot(d, keep=keep) for d in docs]
+        # pad to a pow2 batch with copies of doc 0 carrying empty edit
+        # buckets (all -1): no-op slices whose output is discarded
+        B_pad = self._padded_batch(len(chunk))
+        empty = (np.full(C, -1, np.int32), np.zeros(C, np.int32),
+                 np.zeros(C, np.int32), np.zeros(C, np.int32))
+        row_buckets = buckets + [empty] * (B_pad - len(chunk))
+        states = states + [states[0]] * (B_pad - len(chunk))
+        slot, tok, pos = (self._to_device(np.stack([b[i] for b in row_buckets]))
+                          for i in range(3))
+        batched = stack_states(states)
+        if kind == "replace":
+            new_state, overflow = eng.batch_apply_replaces(batched, slot, tok)
+        elif kind == "insert":
+            new_state, overflow = eng.batch_apply_inserts(batched, slot, tok, pos)
+        else:
+            new_state, overflow = eng.batch_apply_deletes(batched, slot)
+        overflow = overflow.cpu().numpy()  # the dispatch's one host read
+        self.stats.batch_steps += 1
+        self.stats.batched_docs += len(chunk)
+        # the op vector is data: all three kinds share one step shape
+        self._count_shape(("edit", B_pad, n_cap, C, R))
+        applied = 0
+        for b, doc in enumerate(docs):
+            applied += counts[b]
+            self.stats.edits_applied += counts[b]
+            if overflow[b]:
+                self._fallback_full_forward(doc)
+            else:
+                self.store.set_hot(doc, unstack_state(new_state, b))
+        return applied
+
+    # ------------------------------------------------------------ slow paths
+
+    def _reingest(self, doc: _BatchDoc) -> None:
+        """Rebuild device state from the host mirrors (one full forward)."""
+        eng = self.engine(self.C, self.R)
+        self.store.admit(max(state_nbytes_for(doc.n_cap, eng.L, eng.meta)
+                             - self.store.nbytes(doc.doc_id), 0),
+                         keep=frozenset((doc.doc_id,)))
+        state = eng.full_forward(self._to_device(doc.tokens),
+                                 self._to_device(doc.positions),
+                                 self._to_device(doc.valid))
+        self.store.set_hot(doc, state)
+        self.stats.full_forwards += 1
+        self._count_shape(("full", doc.n_cap))
+
+    def _fallback_full_forward(self, doc: _BatchDoc) -> None:
+        """Overflow: discard the unreliable batched slice, recompute from the
+        host mirrors, and double the document's row bucket."""
+        self.stats.overflows += 1
+        self._reingest(doc)
+        if doc.row_capacity < doc.n_cap:
+            doc.row_capacity = min(doc.row_capacity * 2, doc.n_cap)
+
+    def _grow(self, doc: _BatchDoc) -> None:
+        """Slot buffer full: step ``n_cap`` up to the next capacity class
+        (slots keep their indices, new free slots appended). With
+        ``device_grow`` the resident state is padded on the device — no
+        full forward, and the incremental history survives."""
+        old_cap, new_cap = doc.n_cap, self.padded_cap(doc.n_cap + 1)
+        for name, fill in (("tokens", 0), ("valid", False),
+                           ("positions", self._pos_sentinel)):
+            arr = getattr(doc, name)
+            grown = np.full(new_cap, fill, arr.dtype)
+            grown[:old_cap] = arr
+            setattr(doc, name, grown)
+        doc.free.extend(range(new_cap - 1, old_cap - 1, -1))
+        doc.n_cap = new_cap
+        self.stats.grows += 1
+        if not self.device_grow:
+            self._reingest(doc)
+            return
+        eng = self.engine(self.C, self.R)
+        state = self.store.ensure_hot(doc, keep=frozenset((doc.doc_id,)))
+        self.store.admit(
+            state_nbytes_for(new_cap, eng.L, eng.meta)
+            - state_nbytes_for(old_cap, eng.L, eng.meta),
+            keep=frozenset((doc.doc_id,)))
+        self.store.set_hot(doc, eng.pad_state(state, new_cap,
+                                              pos_fill=self._pos_sentinel))
+        self.stats.device_grows += 1
+        self._count_shape(("pad", old_cap, new_cap))
+
+    def _defrag(self, doc: _BatchDoc) -> None:
+        """Gap exhaustion: re-spread every position id evenly (paper §3.3).
+        Every cached activation depends on its position embedding, so the
+        full forward is unavoidable; with ``device_defrag`` the slot
+        compaction before it runs on the device (``gather_slots``) and feeds
+        the same ``full_forward`` a re-ingest would run."""
+        self.stats.defrags += 1
+        if not self.device_defrag:
+            doc.allocator.defragment()
+            doc.positions[np.asarray(doc.slots, np.int64)] = \
+                doc.allocator.snapshot()
+            self._reingest(doc)
+            return
+        eng = self.engine(self.C, self.R)
+        state = self.store.ensure_hot(doc, keep=frozenset((doc.doc_id,)))
+        n = doc.n
+        # compaction permutation: live slots in sequence order, then the
+        # free tail — slot i of the permuted buffers is token i
+        order = np.concatenate([np.asarray(doc.slots, np.int32),
+                                np.asarray(doc.free, np.int32)])
+        doc.allocator.defragment()
+        permuted = eng.gather_slots(state, self._to_device(order))
+        new_positions = np.full(doc.n_cap, self._pos_sentinel, np.int32)
+        new_positions[:n] = doc.allocator.snapshot()
+        new_valid = np.zeros(doc.n_cap, bool)
+        new_valid[:n] = True
+        self.store.set_hot(doc, eng.full_forward(
+            permuted.tokens, self._to_device(new_positions),
+            self._to_device(new_valid)))
+        # host mirrors follow the compaction so slot indices keep matching
+        doc.tokens = doc.tokens[order]
+        doc.valid = new_valid
+        doc.positions = new_positions
+        doc.slots = list(range(n))
+        doc.free = list(range(doc.n_cap - 1, n - 1, -1))
+        self.stats.device_defrags += 1
+        self.stats.full_forwards += 1
+        self._count_shape(("full", doc.n_cap))
+
+    # ------------------------------------------------------------- outputs
+
+    def _flushed(self, doc_id: str) -> _BatchDoc:
+        doc = self.docs[doc_id]
+        if doc.pending:
+            raise RuntimeError(
+                f"document {doc_id!r} has {len(doc.pending)} unflushed edits")
+        return doc
+
+    def tokens(self, doc_id: str) -> np.ndarray:
+        """The document's tokens in sequence order."""
+        return self._flushed(doc_id).seq_tokens().copy()
+
+    def state(self, doc_id: str) -> JitState:
+        return self.store.ensure_hot(self._flushed(doc_id))
+
+    def logits(self, doc_id: str) -> np.ndarray:
+        doc = self._flushed(doc_id)
+        state = self.store.ensure_hot(doc)
+        eng = self.engine(self.C, self.R)
+        return eng.logits_at(state, doc.slots[-1]).cpu().numpy()
