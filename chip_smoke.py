@@ -4,17 +4,23 @@ hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
-Phases, one JSON line each (any failure raises and exits non-zero):
+Phases, one JSON line each with the seconds it took (any failure raises
+and exits non-zero):
 
 1. device     — the card's name and power limit (nvidia-smi), CUDA version;
                 TF32 off for matmuls and cuDNN (TF32 flips VQ codes).
 2. build      — nvcc builds ``src/repro_torch/csrc/*.cu`` for sm_90a into
                 ``build/repro_torch_kernels/``.
-3. kernels    — ``fused_step`` at the main path's shapes (B=4, n=1024, H=12,
-                dh=Q=64, hq=2, C in {8, 72, 264}) and ``delta_gate`` (d=768)
-                against their plain versions on the card, then timed with
-                CUDA events (median of 25 after warm-up) and
-                with torch.profiler (device time per call).
+3. kernels    — every kernel against its plain version on the card at the
+                main paths' shapes, then timed with CUDA events (median of
+                25 after warm-up) and with torch.profiler (device time per
+                call): ``fused_step`` (B=4, n=1024, H=12, dh=Q=64, hq=2, C in
+                {8, 72, 264}), ``delta_gate`` (d=768), ``vq_assign`` (hq=2,
+                Q=64, dv=384; B=4 x N=1024, N=1024 and N=1: idx equal away
+                from near-ties, x_q bitwise the codebook row),
+                ``gated_attention`` (BH=48, dh=64, n in {1024, 1000, 37},
+                within 1e-5) and ``incr_patch`` (B=4, n=1024, H=12, C in
+                {8, 72, 264}, within 1e-4, all-masked rows exactly 0).
 4. serve      — full-width VQ-OPT-125M (random weights from seed 0) behind
                 ``BatchServer(device="cuda")``: 4 documents (256, 300, 700
                 and 1000 tokens) and a seeded mixed edit stream that forces
@@ -26,16 +32,38 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                 differ only at a near-tie, top-two scores within 1e-5).
 6. threshold  — the same stream at ``delta_threshold=1.0``: exact tokens,
                 and ``delta_gate`` launched.
-7. profile    — one more round of edits on the served fleet under
+7. patch      — the serve stream through ``use_fused_kernel=False,
+                use_patch_kernel=True``: tokens and counters equal the
+                fused server's, codes equal except at near-ties, logits
+                within 1e-3, 12 ``incr_patch`` launches per edit dispatch.
+8. profile    — one more round of edits on the served fleet under
                 torch.profiler: device busy time against wall time, and the
                 kernels that take it.
+9. forward    — ``models.transformer.forward`` on the 4 documents padded to
+                a [4, 1024] batch with their sampled position ids: each
+                document's last-row logits within 1e-3 of the engine's
+                ``full_forward`` + ``logits_at`` (unless a VQ code flipped
+                at a near-tie), 12 ``gated_attention`` and 12 ``vq_assign``
+                launches per call, ms per call and tokens/s.
+10. suggest   — the 4 documents subscribed to 8-token suggestions, then
+                the serve stream plus 6 appends to the 1000-token document
+                (its continuation runs out of position ids: a defrag and a
+                retry), then one profiled round (a replace per document).
+                After every flush each suggestion equals
+                ``oracle_suggestion`` token for token, or differs first
+                where the oracle's top-two logits lie within 1e-4.
+                ``vq_assign`` must launch inside the (unprofiled) flushes;
+                refresh latency, reuse counts, decode-cache bytes, peak
+                memory, and the profiled round's device busy share.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 the last line ``{"ok": true, "device": {...}}``. The launch counts in the
 kernels line come from the path that runs each kernel (serve for
-``fused_step``, threshold for ``delta_gate``), with the counters set to 0
-just before that path; launches made to compare or time a kernel do not
-count. Exits non-zero without a GPU and outside a checkout of the repo.
+``fused_step``, threshold for ``delta_gate``, forward for
+``gated_attention``, the suggest flushes for ``vq_assign``, patch for
+``incr_patch``), with the counters set to 0 just before that path; launches
+made to compare or time a kernel do not count. Exits non-zero without a GPU
+and outside a checkout of the repo.
 """
 from __future__ import annotations
 
@@ -51,7 +79,6 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores
-N_LAYERS = 12
 DEVICE = "cuda"
 DOC_LENGTHS = {"d256": 256, "d300": 300, "d700": 700, "d1000": 1000}
 
@@ -179,7 +206,8 @@ def check_delta_gate(ops, ref, gen, r: int, d: int = 768, threshold: float = 1.0
     torch.cuda.synchronize()
     if not torch.equal(keep, plain) or keep[:5].any():
         raise AssertionError(f"delta_gate r={r}: keep bits differ from the plain version")
-    out = dict(r=r, d=d, kept=int(keep.sum()), max_abs_err=0.0)
+    err = float((keep.float() - plain.float()).abs().max())
+    out = dict(r=r, d=d, kept=int(keep.sum()), max_abs_err=err)
     if timed:
         kernel = timings(lambda: ops.delta_gate(x_new, x_old, threshold))
         plain = timings(lambda: ref.delta_gate_ref(x_new, x_old, threshold))
@@ -187,6 +215,101 @@ def check_delta_gate(ops, ref, gen, r: int, d: int = 768, threshold: float = 1.0
                    plain_call_ms=plain["call_ms"], timing=kernel["timing"])
         out["bound_ms"], out["bound_by"] = bound(4 * 2 * r * d + r, 3 * r * d)
     return out
+
+
+def check_vq_assign(mod, gen, B: int, N: int, hq=2, Q=64, dv=384):
+    """``vq_assign`` (B = 1) or ``vq_assign_batched`` against the plain
+    version: indices equal except where the plain version's top-two scores
+    lie within 1e-4 (the dot products sum in another order), x_q bitwise
+    the codebook row of the kernel's index. ``max_abs_err`` is over every
+    entry of x_q, so a near-tie flip shows in it as a whole codebook row."""
+    dev = torch.device("cuda")
+    x = torch.randn((B, N, hq * dv), generator=gen, device=dev)
+    cb = torch.randn((hq, Q, dv), generator=gen, device=dev) * 0.5
+    call = ((lambda: mod.vq_assign(x[0], cb)) if B == 1
+            else (lambda: mod.vq_assign_batched(x, cb)))
+    idx, xq = call()
+    idx = idx.reshape(B, N, hq)
+    idx_p, xq_p = mod.vq_assign_ref(x.reshape(B, N, hq, dv), cb)
+    torch.cuda.synchronize()
+    s = (torch.einsum("bnhd,hqd->bnhq", x.reshape(B, N, hq, dv), cb)
+         + mod.codebook_bias(cb))
+    top2 = s.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= 1e-4
+    flips = idx != idx_p
+    if (flips & ~near).any():
+        raise AssertionError(f"vq_assign B={B} N={N}: {int((flips & ~near).sum())} "
+                             "indices differ away from near-ties")
+    heads = torch.arange(hq, device=dev)
+    if not torch.equal(xq.reshape(B, N, hq, dv), cb[heads, idx.long()]):
+        raise AssertionError(f"vq_assign B={B} N={N}: x_q is not bitwise C[idx]")
+    xq = xq.reshape(B, N, hq, dv)
+    if not torch.equal(xq[~flips], xq_p[~flips]):
+        raise AssertionError(f"vq_assign B={B} N={N}: x_q differs from the plain version")
+    err = float((xq - xq_p).abs().max())
+    kernel = timings(call)
+    plain = timings(lambda: mod.vq_assign_ref(x.reshape(B, N, hq, dv), cb))
+    nbytes = 4 * (2 * x.numel() + cb.numel() + B * N * hq)
+    bound_ms, bound_by = bound(nbytes, 2 * B * N * hq * Q * dv)
+    return dict(B=B, N=N, max_abs_err=err, near_tie_rows=int(near.sum()),
+                near_tie_flips=int(flips.sum()), ms=kernel["ms"],
+                call_ms=kernel["call_ms"], plain_ms=plain["ms"],
+                plain_call_ms=plain["call_ms"], timing=kernel["timing"],
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_gated_attention(mod, gen, n: int, BH=48, dh=64):
+    """``gated_attention_bh`` against the plain version, within 1e-5."""
+    dev = torch.device("cuda")
+    q = torch.randn((BH, n, dh), generator=gen, device=dev) * 0.5
+    k = torch.randn((BH, n, dh), generator=gen, device=dev) * 0.5
+    v = torch.randn((BH, n, dh), generator=gen, device=dev)
+    out = mod.gated_attention_bh(q, k, v)
+    want = mod.gated_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    err = float((out - want).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"gated_attention n={n}: differs by {err} (atol 1e-5)")
+    kernel = timings(lambda: mod.gated_attention_bh(q, k, v))
+    plain = timings(lambda: mod.gated_attention_ref(q, k, v))
+    pairs = n * (n + 1) // 2  # causal (query, key) pairs per batch-head
+    bound_ms, bound_by = bound(4 * 4 * BH * n * dh, BH * pairs * 4 * dh)
+    return dict(BH=BH, n=n, max_abs_err=err, ms=kernel["ms"], call_ms=kernel["call_ms"],
+                plain_ms=plain["ms"], plain_call_ms=plain["call_ms"],
+                timing=kernel["timing"], bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_incr_patch(mod, gen, C: int, B=4, n=1024, H=12, dh=64, Q=64):
+    """``incr_patch_batched`` against the plain version: within 1e-4
+    (rtol 1e-5), fully masked rows and an all-masked filler document
+    exactly 0."""
+    dev = torch.device("cuda")
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    args = (randn(B, n, H, dh), randn(B, H, C, dh), randn(B, H, C, dh),
+            randn(B, H, C, Q), randn(B, H, C, Q),
+            (torch.rand((B, n, C), generator=gen, device=dev) < 0.6).float())
+    mask = args[5]
+    mask[:, ::7] = 0.0  # fully masked rows (free slots)
+    mask[B - 1] = 0.0  # a dispatch's filler document
+    out = mod.incr_patch_batched(*args)
+    want = mod.incr_patch_ref(*args)
+    torch.cuda.synchronize()
+    err = float((out - want).abs().max())
+    if not torch.allclose(out, want, atol=1e-4, rtol=1e-5):
+        raise AssertionError(f"incr_patch C={C}: differs by {err} (atol 1e-4, rtol 1e-5)")
+    dead = mask.sum(-1) == 0
+    if not (out[dead] == 0).all():
+        raise AssertionError(f"incr_patch C={C}: fully masked rows are not 0")
+    kernel = timings(lambda: mod.incr_patch_batched(*args))
+    plain = timings(lambda: mod.incr_patch_ref(*args))
+    live = float(mask.sum())
+    nbytes = 4 * (sum(a.numel() for a in args) + out.numel())
+    bound_ms, bound_by = bound(nbytes, live * H * (4 * dh + 4 * Q))
+    return dict(C=C, max_abs_err=err, masked_rows=int(dead.sum()), ms=kernel["ms"],
+                call_ms=kernel["call_ms"], plain_ms=plain["ms"],
+                plain_call_ms=plain["call_ms"], timing=kernel["timing"],
+                bound_ms=bound_ms, bound_by=bound_by,
+                live_mask_fraction=live / mask.numel())
 
 
 # ------------------------------------------------------------------ serving
@@ -297,6 +420,216 @@ def code_diff(srv_a, srv_b, did: str, vq_bias) -> int:
     return int(diff[first].sum())
 
 
+def n_layers(cfg) -> int:
+    return len(cfg.layer_list())
+
+
+def launch_counters():
+    """The launch counters of every kernel wrapper, by kernel name."""
+    from repro_torch.kernels import fused_step, gated_attention, incr_patch, vq_assign
+
+    mods = (fused_step, gated_attention, incr_patch, vq_assign)
+    return mods, lambda: {k: v for m in mods for k, v in m.LAUNCHES.items()}
+
+
+def reset_launches() -> None:
+    for m in launch_counters()[0]:
+        m.reset_launches()
+
+
+def padded_batch(docs: dict, pool: int, width: int):
+    """The documents as one [len(docs), width] batch: tokens in order, their
+    allocator's sampled (gapped) position ids, padding after the last real
+    row (token 0 at the pool's last id; causal order keeps it unseen)."""
+    from repro_torch.core.positional import PositionAllocator
+
+    toks = np.zeros((len(docs), width), np.int64)
+    pos = np.full((len(docs), width), pool - 1, np.int64)
+    for b, t in enumerate(docs.values()):
+        toks[b, :len(t)] = t
+        pos[b, :len(t)] = PositionAllocator(len(t), pool).snapshot()
+    return toks, pos
+
+
+def forward_phase(tparams, cfg, docs: dict, eng, width: int = 1024) -> dict:
+    """``transformer.forward`` on the padded batch. Each document's last-row
+    logits must match the engine's full forward within 1e-3, unless a VQ
+    code flipped at a near-tie (the engine's top-two scores within 1e-4:
+    the two routes sum the same products in another order)."""
+    from repro_torch.core import vq as vq_mod
+    from repro_torch.models import transformer as T
+
+    toks, pos = padded_batch(docs, cfg.pos_pool, width)
+    tt = torch.tensor(toks, device=DEVICE)
+    tp = torch.tensor(pos, device=DEVICE)
+    codes = []  # the forward's VQ codes, layer by layer
+    quantize = vq_mod.quantize
+
+    def recording(params, x):
+        x_q, idx = quantize(params, x)
+        codes.append(idx)
+        return x_q, idx
+
+    reset_launches()
+    vq_mod.quantize = recording
+    try:
+        logits, _ = T.forward(tparams, cfg, tt, tp)
+        torch.cuda.synchronize()
+    finally:
+        vq_mod.quantize = quantize
+    launches = launch_counters()[1]()
+    for name in ("gated_attention", "vq_assign"):
+        if launches[name] != n_layers(cfg):
+            raise AssertionError(f"forward: {name} launched {launches[name]} times "
+                                 f"(expected {n_layers(cfg)} per call)")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("forward: logits are not finite")
+    diffs, flips = {}, {}
+    m = eng.meta
+    for b, (did, t) in enumerate(docs.items()):
+        n = len(t)
+        st = eng.full_forward(tt[b, :n], tp[b, :n])
+        d = float((eng.logits_at(st, n - 1) - logits[b, n - 1]).abs().max())
+        diff = torch.stack([c[b, :n] for c in codes]) != st.codes  # [L, n, hq]
+        flips[did] = int(diff.sum())
+        if flips[did]:
+            first = int(diff.flatten(1).any(-1).nonzero()[0])
+            causal = (st.positions[None, :] <= st.positions[:, None]).float()
+            sc = (st.T[first].reshape(n, m["hq"], -1, m["Q"]).sum(2)
+                  / causal.sum(-1)[:, None, None] + eng.W["vq_bias"][first])
+            top2 = sc.topk(2, dim=-1).values
+            if (diff[first] & ((top2[..., 0] - top2[..., 1]) > 1e-4)).any():
+                raise AssertionError(f"forward: {did} codes differ at layer {first} "
+                                     "away from near-ties")
+        elif d > 1e-3:
+            raise AssertionError(f"forward: {did} last-row logits differ by {d} (1e-3)")
+        diffs[did] = d
+    call = lambda: T.forward(tparams, cfg, tt, tp)
+    ms = time_ms(call, warmup=2, iters=10)
+    return dict(batch=list(tt.shape), launches={k: launches[k] for k in
+                                                ("gated_attention", "vq_assign")},
+                max_logits_diff=diffs, code_flips=flips, ms_per_forward=ms,
+                tokens_per_s=tt.numel() / (ms / 1e3))
+
+
+def first_token_near_tie(tparams, cfg, doc, cont: np.ndarray, j: int) -> float:
+    """The gap between the top-two logits the oracle decoded token ``j``
+    from: the document followed by its first ``j`` continuation tokens,
+    through ``transformer.forward``."""
+    from repro_torch.models import transformer as T
+
+    seq_t = np.concatenate([doc.seq_tokens(), cont[:j]])
+    last = int(doc.seq_positions()[-1])
+    seq_p = np.concatenate([doc.seq_positions(), last + 1 + np.arange(j)])
+    logits, _ = T.forward(tparams, cfg, torch.tensor(seq_t[None], device=DEVICE),
+                          torch.tensor(seq_p[None], device=DEVICE))
+    top2 = logits[0, -1].topk(2).values
+    return float(top2[0] - top2[1])
+
+
+def suggest_phase(params, cfg, docs: dict, stream, n_new: int = 8, appends: int = 6) -> dict:
+    """Suggestion subscriptions on every document through the stream, plus
+    ``appends`` tokens appended to the last (longest) document in round 0,
+    which runs its continuation out of position ids (a defrag + retry).
+    Every suggestion after every flush is held against the oracle."""
+    from repro_torch.serving.batch_server import BatchServer
+    from repro_torch.serving.suggest import SuggestionEngine, oracle_suggestion
+    from repro_torch.core.edits import Edit
+
+    torch.cuda.reset_peak_memory_stats()
+    srv = BatchServer(params, cfg, device=DEVICE)
+    srv.open_documents({k: list(v) for k, v in docs.items()})
+    for did in docs:
+        srv.submit_suggest(did, n_new)
+    oracle = SuggestionEngine(srv.suggester.params, cfg)
+    tail = list(docs)[-1]
+    rng = np.random.default_rng(1)
+    rounds = [[]] + [list(b) for b in stream]
+    n_tail = len(docs[tail]) + sum({"insert": 1, "delete": -1}.get(e.op, 0)
+                                   for d, e in stream[0] if d == tail)
+    rounds[1] += [(tail, Edit("insert", n_tail + i, int(rng.integers(cfg.vocab))))
+                  for i in range(appends)]
+    # a last round, profiled: one replace of each document's last token
+    rounds.append(None)
+    vq_launches, near_ties, checked, prof = 0, 0, 0, None
+    for r, batch in enumerate(rounds):
+        if batch is None:
+            prof = profile_round(srv, [(did, Edit("replace", srv.docs[did].n - 1,
+                                                  int(rng.integers(cfg.vocab))))
+                                       for did in docs])
+        else:
+            for did, e in batch:
+                srv.submit_edit(did, e)
+            reset_launches()
+            srv.flush()
+            torch.cuda.synchronize()
+            vq_launches += launch_counters()[1]()["vq_assign"]
+        eng = srv.engine(srv.C, srv.R)
+        for did in docs:
+            got = srv.suggestion(did)
+            doc = srv.docs[did]
+            want = oracle_suggestion(srv.suggester.params, cfg, eng, doc.tokens,
+                                     doc.positions, doc.valid, n_new, suggester=oracle)
+            checked += 1
+            if got is None or len(got) != n_new:
+                raise AssertionError(f"suggest: {did} has no fresh suggestion")
+            if not np.array_equal(got, want):
+                j = int(np.flatnonzero(got != want)[0])
+                gap = first_token_near_tie(srv.suggester.params, cfg, doc, want, j)
+                if gap > 1e-4:
+                    raise AssertionError(f"suggest: {did} token {j} differs from the "
+                                         f"oracle (top-two logit gap {gap})")
+                near_ties += 1
+    if vq_launches < 1:
+        raise AssertionError("suggest: vq_assign never launched inside the flushes")
+    st, ss = srv.stats, srv.suggest_stats
+    if st.suggest_headroom_defrags < 1:
+        raise AssertionError("suggest: the appends did not force a headroom defrag")
+    return dict(suggestions_checked=checked, near_tie_suggestions=near_ties,
+                vq_assign_launches=vq_launches,
+                headroom_defrags=st.suggest_headroom_defrags,
+                refreshes=st.suggest_refreshes, refresh_ms_median=st.suggest_latency.p50,
+                refresh_ms_max=st.suggest_latency.max_ms,
+                prefill_rows_reused=ss.prefill_rows_reused,
+                prefill_rows_recomputed=ss.prefill_rows_recomputed,
+                rebuilds=ss.rebuilds, decode_steps=ss.decode_steps,
+                bytes_suggest=st.bytes_suggest, defrags=st.defrags, grows=st.grows,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=prof)
+
+
+def patch_phase(params, cfg, docs, stream, fused) -> dict:
+    """The stream through the unfused step with the ``incr_patch`` kernel,
+    held against the fused server ``fused`` at the same point of the
+    stream."""
+    reset_launches()
+    patch, _ = serve(params, cfg, docs, stream, use_fused_kernel=False,
+                     use_patch_kernel=True)
+    launches = launch_counters()[1]()
+    st = patch.stats
+    if launches["incr_patch"] != n_layers(cfg) * st.batch_steps:
+        raise AssertionError(f"patch: incr_patch launched {launches['incr_patch']} times "
+                             f"for {st.batch_steps} edit dispatches")
+    if launches["fused_step"]:
+        raise AssertionError("patch: the fused kernel ran on the unfused path")
+    for name in ("grows", "defrags", "overflows", "batch_steps", "edits_applied"):
+        if getattr(st, name) != getattr(fused.stats, name):
+            raise AssertionError(f"patch: {name} differ (patch {getattr(st, name)}, "
+                                 f"fused {getattr(fused.stats, name)})")
+    vq_bias = fused.engine(fused.C, fused.R).W["vq_bias"]
+    flips, logit_diff = {}, {}
+    for did in docs:
+        if not np.array_equal(patch.tokens(did), fused.tokens(did)):
+            raise AssertionError(f"patch: {did} tokens differ")
+        flips[did] = code_diff(fused, patch, did, vq_bias)
+        if flips[did] == 0:
+            logit_diff[did] = float(np.abs(patch.logits(did) - fused.logits(did)).max())
+            if logit_diff[did] > 1e-3:
+                raise AssertionError(f"patch: {did} logits differ by {logit_diff[did]}")
+    return dict(launches={"incr_patch": launches["incr_patch"]},
+                edit_dispatches=st.batch_steps, near_tie_flips=flips,
+                max_logits_diff=logit_diff)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -308,14 +641,18 @@ def main() -> int:
     from repro_torch.configs.vq_opt_125m import config
     from repro_torch.core.edits import apply_edits
     from repro_torch.kernels import _build
+    from repro_torch.kernels import gated_attention as gak
+    from repro_torch.kernels import incr_patch as ipk
+    from repro_torch.kernels import vq_assign as vqk
     from repro_torch.kernels.fused_step import ops, ref
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.transformer import init_params, params_from_numpy
 
     # ---- 1. device
+    t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
-    emit("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+    emit("device", seconds=time.perf_counter() - t0, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
          kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     # ---- 2. build
@@ -327,11 +664,17 @@ def main() -> int:
          out_dir=str(_build.build_dir().relative_to(ROOT)), ptxas=ptxas)
 
     # ---- 3. kernels
+    t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     fused = [check_fused_step(ops, ref, gen, C) for C in (8, 72, 264)]
     gates = [check_delta_gate(ops, ref, gen, r) for r in (64, 1024)]
     gate_timed = check_delta_gate(ops, ref, gen, 4 * 64, timed=True)  # B=4 x R=64
-    emit("kernels", fused_step=fused, delta_gate=gates + [gate_timed])
+    vqs = [check_vq_assign(vqk, gen, B, N) for B, N in ((4, 1024), (1, 1024), (1, 1))]
+    gas = [check_gated_attention(gak, gen, n) for n in (1024, 1000, 37)]
+    ips = [check_incr_patch(ipk, gen, C) for C in (8, 72, 264)]
+    emit("kernels", seconds=time.perf_counter() - t0, fused_step=fused,
+         delta_gate=gates + [gate_timed], vq_assign=vqs, gated_attention=gas,
+         incr_patch=ips)
 
     # ---- 4. serve (the main path)
     cfg = config()
@@ -342,7 +685,7 @@ def main() -> int:
     docs = {did: [int(t) for t in rng.integers(0, cfg.vocab, n)]
             for did, n in DOC_LENGTHS.items()}
     stream = make_stream(cfg.vocab)
-    ops.reset_launches()
+    reset_launches()
     srv, lat = serve(params, cfg, docs, stream)
     serve_launches = dict(ops.LAUNCHES)
     st = srv.stats
@@ -355,12 +698,12 @@ def main() -> int:
     for name in ("grows", "defrags", "overflows"):
         if getattr(st, name) < 1:
             raise AssertionError(f"serve: the stream forced no {name[:-1]}")
-    if serve_launches["fused_step"] != N_LAYERS * st.batch_steps:
+    if serve_launches["fused_step"] != n_layers(cfg) * st.batch_steps:
         raise AssertionError(
             f"serve: fused_step launched {serve_launches['fused_step']} times for "
-            f"{st.batch_steps} edit dispatches (expected {N_LAYERS} per dispatch)")
+            f"{st.batch_steps} edit dispatches (expected {n_layers(cfg)} per dispatch)")
     total_s = lat.total_ms / 1e3
-    emit("serve", nvidia_smi=smi, init_params_s=init_s, edits=st.edits_applied,
+    emit("serve", seconds=time.perf_counter() - t0, nvidia_smi=smi, init_params_s=init_s, edits=st.edits_applied,
          edit_dispatches=st.batch_steps, launches=serve_launches,
          grows=st.grows, defrags=st.defrags, overflows=st.overflows,
          full_forwards=st.full_forwards, traced_shapes=st.traced_shapes,
@@ -369,6 +712,7 @@ def main() -> int:
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
     # ---- 5. parity: the inline path
+    t0 = time.perf_counter()
     inline, _ = serve(params, cfg, docs, stream,
                       use_fused_kernel=False)
     for name in ("grows", "defrags", "overflows"):
@@ -385,11 +729,13 @@ def main() -> int:
             logit_diff[did] = float(np.abs(srv.logits(did) - inline.logits(did)).max())
             if logit_diff[did] > 1e-3:
                 raise AssertionError(f"parity: {did} logits differ by {logit_diff[did]}")
-    emit("parity", near_tie_flips=flips, max_logits_diff=logit_diff)
+    emit("parity", seconds=time.perf_counter() - t0, near_tie_flips=flips,
+         max_logits_diff=logit_diff)
     del inline
 
     # ---- 6. threshold
-    ops.reset_launches()
+    t0 = time.perf_counter()
+    reset_launches()
     thr, _ = serve(params, cfg, docs, stream,
                    delta_threshold=1.0)
     thr_launches = dict(ops.LAUNCHES)
@@ -398,14 +744,33 @@ def main() -> int:
             raise AssertionError(f"threshold: {did} tokens differ")
     if thr_launches["delta_gate"] < 1:
         raise AssertionError("threshold: delta_gate never launched")
-    if thr_launches["fused_step"] != N_LAYERS * thr.stats.batch_steps:
+    if thr_launches["fused_step"] != n_layers(cfg) * thr.stats.batch_steps:
         raise AssertionError("threshold: fused_step launches != 12 per dispatch")
-    emit("threshold", launches=thr_launches, edit_dispatches=thr.stats.batch_steps,
-         overflows=thr.stats.overflows)
+    emit("threshold", seconds=time.perf_counter() - t0, launches=thr_launches,
+         edit_dispatches=thr.stats.batch_steps, overflows=thr.stats.overflows)
+    del thr
 
-    # ---- 7. where the time goes: one more profiled round on the served fleet
-    emit("profile", nvidia_smi=smi, **profile_round(srv, make_stream(
-        cfg.vocab, seed=1, rounds=1, lens={d: srv.docs[d].n for d in docs})[0]))
+    # ---- 7. patch: the unfused step with the incr_patch kernel
+    t0 = time.perf_counter()
+    pat = patch_phase(params, cfg, docs, stream, srv)
+    emit("patch", seconds=time.perf_counter() - t0, **pat)
+
+    # ---- 8. where the time goes: one more profiled round on the served fleet
+    t0 = time.perf_counter()
+    prof = profile_round(srv, make_stream(
+        cfg.vocab, seed=1, rounds=1, lens={d: srv.docs[d].n for d in docs})[0])
+    emit("profile", seconds=time.perf_counter() - t0, nvidia_smi=smi, **prof)
+
+    # ---- 9. forward: the model's own entry point
+    t0 = time.perf_counter()
+    fwd = forward_phase(params_from_numpy(params, device=DEVICE), cfg, docs,
+                        srv.engine(srv.C, srv.R))
+    emit("forward", seconds=time.perf_counter() - t0, nvidia_smi=smi, **fwd)
+
+    # ---- 10. suggest: suggestion subscriptions through the stream
+    t0 = time.perf_counter()
+    sug = suggest_phase(params, cfg, docs, stream)
+    emit("suggest", seconds=time.perf_counter() - t0, nvidia_smi=smi, **sug)
 
     # ---- summary
     c72 = next(f for f in fused if f["C"] == 72)
@@ -418,11 +783,29 @@ def main() -> int:
              bound_by=c72["bound_by"], library_ms=None),
         dict(name="delta_gate", route="cuda", source="src/repro_torch/csrc/fused_step.cu",
              replaces="src/repro/kernels/fused_step/fused_step.py:242",
-             launches=thr_launches["delta_gate"], max_abs_err=0.0,
+             launches=thr_launches["delta_gate"],
+             max_abs_err=max(g["max_abs_err"] for g in gates + [gate_timed]),
              ms=gate_timed["ms"], plain_ms=gate_timed["plain_ms"],
              bound_ms=gate_timed["bound_ms"], bound_by=gate_timed["bound_by"],
              library_ms=None),
     ]
+    vq1024 = next(v for v in vqs if v["B"] == 1 and v["N"] == 1024)  # a prefill chunk
+    ga1024 = next(g for g in gas if g["n"] == 1024)
+    ip72 = next(i for i in ips if i["C"] == 72)
+    for name, src, tpu, launches, errs, row in (
+            ("vq_assign", "vq_assign.cu", "vq_assign/vq_assign.py:61",
+             sug["vq_assign_launches"], vqs, vq1024),
+            ("gated_attention", "gated_attention.cu",
+             "gated_attention/gated_attention.py:90",
+             fwd["launches"]["gated_attention"], gas, ga1024),
+            ("incr_patch", "incr_patch.cu", "incr_patch/incr_patch.py:119",
+             pat["launches"]["incr_patch"], ips, ip72)):
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces=f"src/repro/kernels/{tpu}", launches=launches,
+            max_abs_err=max(e["max_abs_err"] for e in errs), ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

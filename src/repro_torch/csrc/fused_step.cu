@@ -52,7 +52,12 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "common.cuh"
+
 namespace {
+
+using repro_torch::gelu_tanh;
+using repro_torch::takes_first_max;
 
 constexpr int DH = 64;                   // head dim (every served config)
 constexpr int QC = 64;                   // codebook size
@@ -65,14 +70,6 @@ constexpr int GATE_WARPS = 8;            // rows per delta_gate block
 
 static_assert(DH == QC, "one ownership pattern serves dh and Q");
 static_assert(LANES == 4, "the row reduction below shuffles over 4 lanes");
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  // tanh-approximate GELU, the form of torch's F.gelu(approximate="tanh")
-  const float kBeta = 0.7978845608028654f;  // sqrt(2 / pi)
-  const float kKappa = 0.044715f;
-  const float inner = kBeta * (x + kKappa * (x * x * x));
-  return 0.5f * x * (1.0f + tanhf(inner));
-}
 
 __global__ void __launch_bounds__(THREADS)
 fused_step_kernel(const float* __restrict__ q,       // [B, n, H, DH]
@@ -192,7 +189,7 @@ fused_step_kernel(const float* __restrict__ q,       // [B, n, H, DH]
   for (int off = 1; off < LANES; off <<= 1) {
     const float ob = __shfl_xor_sync(0xffffffffu, best, off);
     const int oi = __shfl_xor_sync(0xffffffffu, best_idx, off);
-    if (ob > best || (ob == best && oi < best_idx)) {
+    if (takes_first_max(ob, oi, best, best_idx)) {
       best = ob;
       best_idx = oi;
     }

@@ -1,0 +1,58 @@
+"""What every kernel wrapper does around a launch: bind a C launcher from
+its library (``_build.load``), check the tensors it is given, and raise
+when the launch is refused.
+
+Wrappers dispatch on the device of their inputs: CPU tensors run the plain
+PyTorch version (that is how the tests run) and CUDA tensors launch the
+hand-written kernel or raise. Nothing falls back from the card to the plain
+version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_fns: dict = {}
+
+PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def bind(lib_name: str, fn_name: str, argtypes: list):
+    """The C launcher ``fn_name`` of ``csrc/<lib_name>.cu`` (built and loaded
+    on first use), returning an int CUDA error code."""
+    fn = _fns.get((lib_name, fn_name))
+    if fn is None:
+        from repro_torch.kernels import _build
+
+        fn = getattr(_build.load(lib_name), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[(lib_name, fn_name)] = fn
+    return fn
+
+
+def require_cuda(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {t.device}")
+
+
+def check(name: str, t: torch.Tensor, shape: tuple, device,
+          dtype=torch.float32) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def stream_of(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on_error(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")

@@ -1,0 +1,81 @@
+"""Wrappers of the VQ assignment kernel (``csrc/vq_assign.cu``), the port
+of ``repro/kernels/vq_assign/ops.py``.
+
+CPU tensors run the plain version (``ref.py``); CUDA tensors launch the
+kernel or raise. ``vq_assign`` quantizes any leading shape in one launch
+(B = 1); ``vq_assign_batched`` takes [B, N, d] documents in one launch with
+a leading B, the codebook shared. ``LAUNCHES`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels._launch import (
+    INT, PTR, bind, check, raise_on_error, require_cuda, stream_of,
+)
+from repro_torch.kernels.vq_assign.ref import codebook_bias, vq_assign_ref
+
+LAUNCHES = {"vq_assign": 0}
+
+_QMAX = 256  # the largest codebook the kernel takes
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _launch(xh: torch.Tensor, codebook: torch.Tensor):
+    """xh: [B, N, hq, dv] f32 contiguous on the card -> (idx [B, N, hq]
+    int32, xq [B, N, hq, dv] f32): one kernel launch."""
+    require_cuda("vq_assign", xh)
+    B, N, hq, dv = xh.shape
+    Q = codebook.shape[1]
+    dev = xh.device
+    if not 1 <= Q <= _QMAX:
+        raise ValueError(f"the vq_assign kernel takes 1 <= Q <= {_QMAX}, got Q={Q}")
+    if dv < 1:
+        raise ValueError("vq_assign needs dv >= 1")
+    check("xh", xh, (B, N, hq, dv), dev)
+    check("codebook", codebook, (hq, Q, dv), dev)
+    bias = codebook_bias(codebook)
+    idx = torch.empty((B, N, hq), dtype=torch.int32, device=dev)
+    xq = torch.empty_like(xh)
+    if B == 0 or N == 0 or hq == 0:
+        return idx, xq
+    fn = bind("vq_assign", "vq_assign_launch", [PTR] * 5 + [INT] * 5 + [PTR])
+    with torch.cuda.device(dev):
+        err = fn(xh.data_ptr(), codebook.data_ptr(), bias.data_ptr(),
+                 idx.data_ptr(), xq.data_ptr(), B, N, hq, Q, dv, stream_of(dev))
+    raise_on_error("vq_assign", err)
+    LAUNCHES["vq_assign"] += 1
+    return idx, xq
+
+
+def vq_assign(x: torch.Tensor, codebook: torch.Tensor):
+    """x: [..., d] attention outputs; codebook: [hq, Q, dv] with hq·dv = d.
+    Returns (idx [..., hq] int32, x_q [..., d])."""
+    hq, Q, dv = codebook.shape
+    *lead, d = x.shape
+    if hq * dv != d:
+        raise ValueError(f"codebook {tuple(codebook.shape)} does not split d={d}")
+    if x.device.type == "cpu":
+        idx, xq = vq_assign_ref(x.reshape(*lead, hq, dv), codebook)
+        return idx, xq.reshape(*lead, d)
+    idx, xq = _launch(x.reshape(1, -1, hq, dv).contiguous(), codebook)
+    return idx.reshape(*lead, hq), xq.reshape(*lead, d).to(x.dtype)
+
+
+def vq_assign_batched(x: torch.Tensor, codebook: torch.Tensor):
+    """x: [B, N, d] a batch of documents' attention outputs; codebook
+    [hq, Q, dv] shared by the batch. Returns (idx [B, N, hq] int32,
+    x_q [B, N, d]) — one launch whose grid has a leading B."""
+    hq, Q, dv = codebook.shape
+    B, N, d = x.shape
+    if hq * dv != d:
+        raise ValueError(f"codebook {tuple(codebook.shape)} does not split d={d}")
+    if x.device.type == "cpu":
+        idx, xq = vq_assign_ref(x.reshape(B, N, hq, dv), codebook)
+        return idx, xq.reshape(B, N, d)
+    idx, xq = _launch(x.reshape(B, N, hq, dv).contiguous(), codebook)
+    return idx, xq.reshape(B, N, d).to(x.dtype)

@@ -8,6 +8,9 @@ exposes them: ``batch_full_forward`` ingests B slot buffers,
 (one ``fused_step`` launch per layer for the whole batch) and returns a
 per-document ``overflow [B]``. All documents of a batch share the
 capacities ``(n_cap, C, R)``; the batch server's buckets guarantee this.
+With ``use_patch_kernel=True`` (fused kernel off) each layer's column patch
+is one batched ``incr_patch`` launch. ``batch_export_kv`` is the KV export
+of every document of a batch in one gather.
 Slice b of every batched result equals the single-document engine run on
 document b.
 """
@@ -16,7 +19,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.serving.jit_engine import (
-    OP_DELETE, OP_INSERT, JitIncrementalEngine, JitState, _ln,
+    OP_DELETE, OP_INSERT, JitIncrementalEngine, JitState, KVExport, _ln,
+    sequence_order,
 )
 
 # A JitState whose every leaf carries a leading [B] document axis.
@@ -67,6 +71,18 @@ class BatchedJitEngine(JitIncrementalEngine):
         z = torch.zeros_like(slot)
         op = torch.where(slot >= 0, OP_DELETE, 0)
         return self.batch_apply_edits(state, slot, z, z, op)
+
+    def batch_export_kv(self, state: BatchedJitState) -> KVExport:
+        """Position-ordered KV export of every document of the batch: each
+        ``KVExport`` leaf gains a leading [B] axis (k, v: [B, L, n, H, dh]).
+        Slice b equals ``export_kv`` of document b."""
+        order = sequence_order(state.valid, state.positions)  # [B, n]
+        b = torch.arange(order.shape[0], device=order.device)[:, None]
+        take = lambda a: a[b[:, :, None], torch.arange(a.shape[1], device=a.device)[None, :, None],
+                           order[:, None, :]]
+        return KVExport(tokens=state.tokens[b, order], positions=state.positions[b, order],
+                        order=order.to(torch.int32), k=take(state.k), v=take(state.v),
+                        n_real=state.n_real)
 
     def batch_logits_at(self, state: BatchedJitState, index) -> torch.Tensor:
         """index: [B] per-document slot -> logits [B, vocab]."""

@@ -1,5 +1,5 @@
-"""Multi-document edit serving over the batched engine — the edit path of
-``repro/serving/batch_server.py`` on PyTorch.
+"""Multi-document edit and suggestion serving over the batched engine — the
+edit and suggestion paths of ``repro/serving/batch_server.py`` on PyTorch.
 
 The scheduler is the reference's (read its module docstring): documents
 live in slot buffers padded to capacity classes; clients submit replace /
@@ -14,8 +14,16 @@ gap exhausted: ``gather_slots`` + re-spread + ``full_forward``) and the
 ``R`` doubles). A failed take or dispatch rolls every unserved document back
 to its pre-take snapshot.
 
-Not ported yet (later slices): suggestion subscriptions, the serving mesh,
-the warm/cold tiers and budgets, the persistent compilation cache, and
+Clients may ``submit_suggest`` a standing suggestion subscription: after
+every scheduling round each stale subscription is refreshed through
+``serving.suggest.SuggestionEngine`` (KV export + re-prefill from the
+earliest invalidated position). The ``invalid_from`` (since the last
+refresh) and ``touched_from`` (since the last full forward) watermarks
+record the earliest edited position id; a continuation that would run past
+the position pool triggers a defrag and one retry.
+
+Not ported yet (later slices): the serving mesh, the warm/cold tiers and
+budgets, the persistent compilation cache, the async front end, and
 ``checkpoint_document`` / ``export_document`` / ``import_document``.
 
 Host mirrors are copied to the device with ``torch.tensor`` (never
@@ -28,6 +36,8 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
+import time
+
 import numpy as np
 import torch
 
@@ -39,10 +49,15 @@ from repro_torch.core.positional import PositionAllocator
 from repro_torch.serving.batch_engine import (
     BatchedJitEngine, stack_states, unstack_state,
 )
+from repro_torch.models.transformer import params_from_numpy
 from repro_torch.serving.jit_engine import (
     OP_DELETE, OP_INSERT, OP_REPLACE, JitState, state_nbytes_for,
 )
+from repro_torch.serving.latency import LatencyStats
 from repro_torch.serving.state_store import StateStore
+from repro_torch.serving.suggest import (
+    PositionHeadroomError, SuggestionEngine, SuggestStats,
+)
 
 _OPCODE = {"replace": OP_REPLACE, "insert": OP_INSERT, "delete": OP_DELETE}
 
@@ -63,7 +78,16 @@ class BatchStats:
     traced_shapes: int = 0  # distinct step shapes seen (ingest, edit, pad)
     closes: int = 0  # close_document calls (docs stays = documents opened)
     bytes_hot: int = 0  # device-resident document states
+    bytes_suggest: int = 0  # device-resident suggestion decode caches (soft)
     docs_hot: int = 0
+    suggest_refreshes: int = 0  # suggestion recomputes served
+    suggest_invalidations: int = 0  # fresh suggestions staled by newer edits
+    suggest_cached_hits: int = 0  # suggestions served from the cached
+    # continuation without a prefill (the watermarks were unchanged)
+    suggest_headroom_defrags: int = 0  # refreshes that ran out of position
+    # ids past the document (PositionHeadroomError), defragged and retried
+    # host time of each real refresh, ending at the continuation's host read
+    suggest_latency: LatencyStats = field(default_factory=LatencyStats)
 
     @property
     def mean_batch(self) -> float:
@@ -85,6 +109,13 @@ class _BatchDoc:
     state_epoch: int = 0  # bumped on every content-CHANGING state replacement
     pending: deque = field(default_factory=deque)  # FIFO of (op, pos, tok)
     n_virtual: int = 0  # length after every queued edit applies
+    # ---- suggestion serving
+    suggestion: Optional[np.ndarray] = None  # last refreshed continuation
+    suggest_n: int = 0  # standing request length (0 = no subscription)
+    suggest_fresh: bool = False  # suggestion matches the current doc + queue
+    suggest_serial: int = 0  # bumped per real refresh (NOT per cached hit)
+    invalid_from: Optional[int] = None  # min pid edited since last refresh
+    touched_from: Optional[int] = None  # min pid touched since last ingest
 
     @property
     def n(self) -> int:  # real length
@@ -93,19 +124,24 @@ class _BatchDoc:
     def seq_tokens(self) -> np.ndarray:
         return self.tokens[np.asarray(self.slots, np.int64)]
 
+    def seq_positions(self) -> np.ndarray:
+        return self.positions[np.asarray(self.slots, np.int64)]
+
 
 class BatchServer:
     """Full-edit-algebra serving for many documents over one batched engine."""
 
     def __init__(self, params: dict, cfg: ArchConfig, *, edit_capacity: int = 8,
                  row_capacity: int = 64, max_batch: int = 8,
-                 min_doc_capacity: int = 16, use_fused_kernel: bool = True,
+                 min_doc_capacity: int = 16, use_patch_kernel: bool = False,
+                 use_fused_kernel: bool = True,
                  delta_threshold: float = 0.0, capacity_class_step: int = 4,
                  device_grow: bool = True, device_defrag: bool = True,
                  pos_pool: Optional[int] = None, device="cuda"):
         """``use_fused_kernel`` (default on, as in the reference) routes each
         layer's patch + requantize through one ``fused_step`` kernel launch;
-        ``delta_threshold`` is the served tolerance (0.0 serves bit-exactly
+        ``use_patch_kernel`` (with the fused kernel off) routes only the
+        column patch through one ``incr_patch`` launch; ``delta_threshold`` is the served tolerance (0.0 serves bit-exactly
         like the ungated engine); ``capacity_class_step`` spaces the document
         capacity classes; ``device_grow`` / ``device_defrag`` serve the
         structural slow paths on the device instead of host re-ingests."""
@@ -119,6 +155,7 @@ class BatchServer:
         self.R = next_pow2(row_capacity)
         self.max_batch = max_batch
         self.min_doc_capacity = next_pow2(min_doc_capacity)
+        self.use_patch_kernel = use_patch_kernel
         self.use_fused_kernel = use_fused_kernel
         self.delta_threshold = float(delta_threshold)
         self.capacity_class_step = capacity_class_step
@@ -127,6 +164,7 @@ class BatchServer:
         self.pos_pool = pos_pool or (cfg.pos_pool if cfg.pos_pool else cfg.max_seq)
         base = BatchedJitEngine(params, cfg, edit_capacity=self.C,
                                 row_capacity=self.R,
+                                use_patch_kernel=use_patch_kernel,
                                 use_fused_kernel=use_fused_kernel,
                                 delta_threshold=self.delta_threshold,
                                 device=self.device)
@@ -137,6 +175,30 @@ class BatchServer:
         self.docs: dict[str, _BatchDoc] = {}
         self.stats = BatchStats()
         self.store = StateStore(stats=self.stats)
+        self._params = params
+        self._sugg: Optional[SuggestionEngine] = None
+        # streaming hook: when set, every REAL suggestion refresh calls
+        # ``on_suggest_token(doc_id, serial, token)`` per decoded token
+        self.on_suggest_token = None
+
+    @property
+    def suggester(self) -> SuggestionEngine:
+        """The (lazily built) suggestion engine shared by every document; it
+        holds its own copy of the weights on the serving device. Its decode
+        caches report their bytes to the state store (soft state)."""
+        if self._sugg is None:
+            self._sugg = SuggestionEngine(
+                params_from_numpy(self._params, device=self.device), self.cfg,
+                on_cache_bytes=self.store.note_suggest_bytes)
+        return self._sugg
+
+    @property
+    def suggest_stats(self) -> SuggestStats:
+        return self.suggester.stats
+
+    def _drop_suggest_cache(self, doc_id: str) -> None:
+        if self._sugg is not None:
+            self._sugg.drop(doc_id)
 
     # ------------------------------------------------------------- engines
 
@@ -147,6 +209,7 @@ class BatchServer:
             self._engines[key] = BatchedJitEngine(
                 {}, self.cfg, edit_capacity=edit_capacity,
                 row_capacity=row_capacity,
+                use_patch_kernel=self.use_patch_kernel,
                 use_fused_kernel=self.use_fused_kernel,
                 delta_threshold=self.delta_threshold, device=self.device,
                 _weights=self._weights)
@@ -241,8 +304,10 @@ class BatchServer:
     def close_document(self, doc_id: str) -> None:
         """End a session: release the document's state and queue."""
         doc = self.docs.pop(doc_id)  # KeyError for unknown ids
+        self._drop_suggest_cache(doc_id)  # listener zeroes its byte account
         self.store.close(doc)
         doc.pending.clear()
+        doc.suggestion = None
         self.stats.closes += 1
 
     def tier(self, doc_id: str) -> str:
@@ -257,6 +322,23 @@ class BatchServer:
         if not 0 <= tok < self.cfg.vocab:
             raise ValueError(f"token {tok} outside vocab of {self.cfg.vocab}")
 
+    def _stale(self, doc: _BatchDoc) -> None:
+        """A newer edit for the document invalidates its suggestion."""
+        if doc.suggest_fresh:
+            doc.suggest_fresh = False
+            self.stats.suggest_invalidations += 1
+
+    def _touch(self, doc: _BatchDoc, pid: int) -> None:
+        """Record an applied edit's position id in the invalidation
+        watermarks. Causal masking confines every propagated (or
+        threshold-suppressed) row to ids >= the earliest edited id, so the
+        minimum over edited ids covers every possibly-changed row."""
+        pid = int(pid)
+        doc.invalid_from = (pid if doc.invalid_from is None
+                            else min(doc.invalid_from, pid))
+        doc.touched_from = (pid if doc.touched_from is None
+                            else min(doc.touched_from, pid))
+
     def submit_replace(self, doc_id: str, pos: int, tok: int) -> None:
         doc = self.docs[doc_id]
         if not 0 <= pos < doc.n_virtual:
@@ -264,6 +346,7 @@ class BatchServer:
                 f"pos {pos} out of range for doc of length {doc.n_virtual}")
         self._check_tok(tok)
         doc.pending.append(("replace", int(pos), int(tok)))
+        self._stale(doc)
         self.stats.edits_submitted += 1
 
     def submit_insert(self, doc_id: str, pos: int, tok: int) -> None:
@@ -277,6 +360,7 @@ class BatchServer:
         self._check_tok(tok)
         doc.pending.append(("insert", int(pos), int(tok)))
         doc.n_virtual += 1
+        self._stale(doc)
         self.stats.edits_submitted += 1
 
     def submit_delete(self, doc_id: str, pos: int) -> None:
@@ -288,6 +372,7 @@ class BatchServer:
             raise ValueError("cannot delete the last remaining token")
         doc.pending.append(("delete", int(pos), 0))
         doc.n_virtual -= 1
+        self._stale(doc)
         self.stats.edits_submitted += 1
 
     def submit_edit(self, doc_id: str, e: Edit) -> None:
@@ -308,12 +393,14 @@ class BatchServer:
         return (doc.tokens.copy(), doc.valid.copy(), doc.positions.copy(),
                 list(doc.slots), list(doc.free), doc.n_cap, doc.row_capacity,
                 doc.allocator.snapshot(), doc.state, doc.state_epoch,
-                deque(doc.pending), doc.n_virtual)
+                deque(doc.pending), doc.n_virtual, doc.invalid_from,
+                doc.touched_from, doc.suggest_fresh)
 
     def _restore(self, doc: _BatchDoc, snap: tuple) -> None:
         (doc.tokens, doc.valid, doc.positions, doc.slots, doc.free, doc.n_cap,
          doc.row_capacity, alloc_ids, state, epoch, doc.pending,
-         doc.n_virtual) = snap
+         doc.n_virtual, doc.invalid_from, doc.touched_from,
+         doc.suggest_fresh) = snap
         doc.allocator.restore(alloc_ids)
         # a mid-take grow/defrag replaced the device state: re-adopt the
         # exact pre-take state the snapshot still references
@@ -352,6 +439,7 @@ class BatchServer:
                 tok_a[i] = tok
                 pos_a[i] = doc.positions[s]
                 doc.tokens[s] = tok
+                self._touch(doc, doc.positions[s])
                 i += 1
             for item in reversed(kept):
                 doc.pending.appendleft(item)
@@ -383,6 +471,7 @@ class BatchServer:
                 slot_a[i] = s
                 tok_a[i] = tok
                 pos_a[i] = pid
+                self._touch(doc, pid)
                 i += 1
         else:  # delete
             while doc.pending and i < self.C:
@@ -395,13 +484,17 @@ class BatchServer:
                 pos_a[i] = doc.positions[s]
                 slot_a[i] = s
                 doc.free.append(s)  # earliest reuse is the NEXT dispatch
+                self._touch(doc, doc.positions[s])
                 i += 1
         return kind, (slot_a, tok_a, pos_a, op_a), i
 
     def step(self) -> int:
-        """One scheduling round of edit dispatches. Returns the number of
-        edits applied."""
+        """One scheduling round: edit dispatches, then stale suggestion
+        refreshes. Returns the number of edits applied."""
         ready = [d for d in self.docs.values() if d.pending]
+        if not ready:
+            self._refresh_suggestions()
+            return 0
         takes = []  # (doc, kind, arrays, count)
         undone: dict[int, tuple] = {}  # id(doc) -> (doc, snapshot)
         applied = 0
@@ -433,13 +526,16 @@ class BatchServer:
             for d, snap in undone.values():
                 self._restore(d, snap)
             raise
+        self._refresh_suggestions()
         return applied
 
     def flush(self) -> int:
-        """Drain every queue; returns total edits applied."""
+        """Drain every queue; returns total edits applied. Stale suggestion
+        subscriptions are refreshed too, also when there were no edits."""
         total = 0
         while self.pending_count():
             total += self.step()
+        self._refresh_suggestions()  # no-op when every subscription is fresh
         return total
 
     def _dispatch(self, chunk: list, n_cap: int, C: int, R: int,
@@ -493,6 +589,9 @@ class BatchServer:
                                  self._to_device(doc.positions),
                                  self._to_device(doc.valid))
         self.store.set_hot(doc, state)
+        # a from-scratch full forward again: every exported column is
+        # trustworthy for suggestion KV reuse
+        doc.touched_from = None
         self.stats.full_forwards += 1
         self._count_shape(("full", doc.n_cap))
 
@@ -508,7 +607,8 @@ class BatchServer:
         """Slot buffer full: step ``n_cap`` up to the next capacity class
         (slots keep their indices, new free slots appended). With
         ``device_grow`` the resident state is padded on the device — no
-        full forward, and the incremental history survives."""
+        full forward, and the incremental history survives, so
+        ``touched_from`` is kept. The suggestion cache's shape is void."""
         old_cap, new_cap = doc.n_cap, self.padded_cap(doc.n_cap + 1)
         for name, fill in (("tokens", 0), ("valid", False),
                            ("positions", self._pos_sentinel)):
@@ -519,6 +619,7 @@ class BatchServer:
         doc.free.extend(range(new_cap - 1, old_cap - 1, -1))
         doc.n_cap = new_cap
         self.stats.grows += 1
+        self._drop_suggest_cache(doc.doc_id)
         if not self.device_grow:
             self._reingest(doc)
             return
@@ -540,6 +641,10 @@ class BatchServer:
         compaction before it runs on the device (``gather_slots``) and feeds
         the same ``full_forward`` a re-ingest would run."""
         self.stats.defrags += 1
+        # every position id changes: nothing in the decode cache is reusable
+        self._drop_suggest_cache(doc.doc_id)
+        doc.invalid_from = 0
+        self._stale(doc)
         if not self.device_defrag:
             doc.allocator.defragment()
             doc.positions[np.asarray(doc.slots, np.int64)] = \
@@ -568,9 +673,101 @@ class BatchServer:
         doc.positions = new_positions
         doc.slots = list(range(n))
         doc.free = list(range(doc.n_cap - 1, n - 1, -1))
+        doc.touched_from = None
         self.stats.device_defrags += 1
         self.stats.full_forwards += 1
         self._count_shape(("full", doc.n_cap))
+
+    # ------------------------------------------------------------ suggestions
+
+    def submit_suggest(self, doc_id: str, n_new: int = 8) -> None:
+        """Open a standing suggestion subscription: after every scheduling
+        round the document's greedy ``n_new``-token continuation is kept
+        fresh. Cancel with ``cancel_suggest``."""
+        doc = self.docs[doc_id]
+        if n_new < 1:
+            raise ValueError("n_new must be >= 1")
+        if doc.suggest_n != n_new:
+            doc.suggest_n = int(n_new)
+            doc.suggest_fresh = False
+
+    def cancel_suggest(self, doc_id: str) -> None:
+        doc = self.docs[doc_id]
+        doc.suggest_n = 0
+        doc.suggestion = None
+        doc.suggest_fresh = False
+
+    def suggestion(self, doc_id: str) -> Optional[np.ndarray]:
+        """The last refreshed continuation, or None while it is stale."""
+        doc = self.docs[doc_id]
+        return doc.suggestion.copy() if doc.suggest_fresh else None
+
+    def suggest(self, doc_id: str, n_new: int = 8) -> np.ndarray:
+        """Flush the document's pending edits and return a fresh greedy
+        continuation (subscribing the document if it was not already). When
+        nothing changed since the last refresh and the cached continuation
+        covers ``n_new``, it is returned without a prefill."""
+        if n_new < 1:
+            raise ValueError("n_new must be >= 1")
+        doc = self.docs[doc_id]
+        if (not doc.pending and doc.suggest_fresh and doc.invalid_from is None
+                and doc.suggestion is not None
+                and len(doc.suggestion) >= n_new):
+            self.stats.suggest_cached_hits += 1
+            return doc.suggestion[:n_new].copy()
+        self.submit_suggest(doc_id, n_new)
+        self.flush()
+        if not doc.suggest_fresh:
+            self._refresh_doc(doc)
+        return doc.suggestion.copy()
+
+    def _refresh_suggestions(self) -> None:
+        """Serve stale subscriptions, grouped by capacity class. A document
+        with queued edits stays stale until they apply."""
+        ready = [d for d in self.docs.values()
+                 if d.suggest_n > 0 and not d.suggest_fresh and not d.pending]
+        for doc in sorted(ready, key=lambda d: (d.n_cap, d.doc_id)):
+            self._refresh_doc(doc)
+
+    def _refresh_doc(self, doc: _BatchDoc) -> None:
+        # unchanged watermarks since the suggestion it holds: the greedy
+        # continuation cannot differ — serve the cached tokens
+        if (doc.invalid_from is None and doc.suggestion is not None
+                and len(doc.suggestion) >= doc.suggest_n):
+            doc.suggestion = doc.suggestion[:doc.suggest_n]
+            doc.suggest_fresh = True
+            self.stats.suggest_cached_hits += 1
+            return
+        sugg = self.suggester
+        eng = self.engine(self.C, self.R)
+        self.store.ensure_hot(doc)  # the KV export reads the device state
+        on_token = None
+        if self.on_suggest_token is not None:
+            serial, hook = doc.suggest_serial + 1, self.on_suggest_token
+
+            def on_token(tok, _id=doc.doc_id, _serial=serial, _hook=hook):
+                _hook(_id, _serial, int(np.asarray(tok).reshape(-1)[0]))
+        t0 = time.perf_counter()
+        try:
+            toks = sugg.refresh(
+                eng, doc.state, key=doc.doc_id, n_new=doc.suggest_n,
+                invalid_from=doc.invalid_from,
+                export_invalid_from=doc.touched_from, on_token=on_token)
+        except PositionHeadroomError:
+            # the tail gap is exhausted: re-spread the ids (a defrag and its
+            # full forward) and retry once
+            self.stats.suggest_headroom_defrags += 1
+            self._defrag(doc)
+            toks = sugg.refresh(
+                eng, doc.state, key=doc.doc_id, n_new=doc.suggest_n,
+                invalid_from=doc.invalid_from,
+                export_invalid_from=doc.touched_from, on_token=on_token)
+        self.stats.suggest_latency.record((time.perf_counter() - t0) * 1e3)
+        doc.suggestion = toks
+        doc.suggest_fresh = True
+        doc.invalid_from = None
+        doc.suggest_serial += 1
+        self.stats.suggest_refreshes += 1
 
     # ------------------------------------------------------------- outputs
 

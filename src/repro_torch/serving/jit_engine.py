@@ -24,8 +24,13 @@ What differs from the reference:
 * with ``use_fused_kernel=True`` each layer's patch + T accumulate +
   requantize is one launch of the hand-written CUDA kernel
   (``kernels/fused_step``), and the ``delta_threshold`` gate is one launch
-  of the ``delta_gate`` kernel; on CPU tensors both run their plain
-  PyTorch versions.
+  of the ``delta_gate`` kernel; with ``use_patch_kernel=True`` (and the
+  fused kernel off) only the column patch is a kernel (``kernels/incr_patch``)
+  and the requantize and the gate's compare stay inline. On CPU tensors
+  every kernel runs its plain PyTorch version.
+
+``export_kv`` gathers a state's cached k/v into sequence order (``KVExport``),
+the bridge to the decode caches of suggestion serving (``suggest.py``).
 
 State layout per document (``JitState``; batched leaves gain a leading
 ``[B]``): tokens/positions ``[n_cap]`` int32, valid ``[n_cap]`` bool,
@@ -43,6 +48,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.fused_step import delta_gate, fused_patch_assign_batched
+from repro_torch.kernels.incr_patch import incr_patch_batched
 
 # Edit opcodes for the generic ``apply_edits`` step (int32 bucket entries).
 OP_REPLACE = 0
@@ -62,6 +68,22 @@ class JitState(NamedTuple):
     vc: torch.Tensor  # [L, n_cap, H, Q]
     T: torch.Tensor  # [L, n_cap, H, Q]
     codes: torch.Tensor  # [L, n_cap, hq]
+
+
+class KVExport(NamedTuple):
+    """Position-ordered view of a slot buffer's cached keys/values. All
+    leaves keep the ``n_cap`` extent: the first ``n_real`` rows are the
+    valid slots in sequence (position-id) order, the tail rows are invalid
+    slots' garbage, which a decode cache masks with its length counter.
+    Columns the incremental passes never touched are bit-exact against the
+    document's last full forward; touched columns are float-close only."""
+
+    tokens: torch.Tensor  # [n_cap] int32, sequence-ordered (valid rows first)
+    positions: torch.Tensor  # [n_cap] int32
+    order: torch.Tensor  # [n_cap] int32 — slot index per sequence rank
+    k: torch.Tensor  # [L, n_cap, H, dh] sequence-ordered cached keys
+    v: torch.Tensor  # [L, n_cap, H, dh]
+    n_real: torch.Tensor  # [] int32
 
 
 # ---------------------------------------------------------------- host copies
@@ -250,6 +272,16 @@ def _put(base: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor,
     return flat[:B * n].view(B, n, *rest)
 
 
+def sequence_order(valid: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Slot indices in sequence (position-id) order along the last axis,
+    invalid slots last: their position ids may hold the pool sentinel, so
+    the sort key is lifted above every real id. The sort is stable, so the
+    invalid tail keeps slot order — the host-side order
+    ``SuggestionEngine.refresh`` computes."""
+    big = torch.iinfo(torch.int32).max
+    return torch.argsort(torch.where(valid, positions, big), dim=-1, stable=True)
+
+
 def _dense(idx: torch.Tensor, keep: torch.Tensor, n: int) -> torch.Tensor:
     """[B, n] bool with True at idx[b, j] where keep[b, j]."""
     base = torch.zeros(idx.shape[0], n, dtype=torch.bool, device=idx.device)
@@ -264,8 +296,9 @@ class JitIncrementalEngine:
     stacks. ``device`` defaults to ``"cuda"`` and never falls back."""
 
     def __init__(self, params: dict, cfg: ArchConfig, *, edit_capacity: int = 8,
-                 row_capacity: int = 64, use_fused_kernel: bool = False,
-                 delta_threshold: float = 0.0, device="cuda", _weights=None):
+                 row_capacity: int = 64, use_patch_kernel: bool = False,
+                 use_fused_kernel: bool = False, delta_threshold: float = 0.0,
+                 device="cuda", _weights=None):
         self.cfg = cfg
         self.C = edit_capacity
         self.R = row_capacity
@@ -275,7 +308,10 @@ class JitIncrementalEngine:
             raise ValueError(
                 "torch.backends.cuda.matmul.allow_tf32 is True: TF32 matmuls "
                 "flip VQ codes; set it to False before serving")
-        # one fused_step launch per layer (patch + T accumulate + requantize)
+        # the column patch through the incr_patch kernel (same math)
+        self.use_patch_kernel = use_patch_kernel
+        # one fused_step launch per layer (patch + T accumulate + requantize);
+        # subsumes use_patch_kernel
         self.use_fused_kernel = use_fused_kernel
         # sigma-delta gate (DESIGN.md §10); 0.0 runs the ungated step exactly
         if delta_threshold < 0.0:
@@ -477,12 +513,22 @@ class JitIncrementalEngine:
                     pmask, T_base, counts, W["vq_bias"][li],
                     heads_per_vq=m["heads_per_vq"])
             else:
-                cm = (col_mask * row_valid[:, :, None])[:, :, None, :]
-                q_l = state.q[:, li]
-                s_new = torch.einsum("bnhe,bche->bnhc", q_l, k_new) * m["scale"]
-                s_old = torch.einsum("bnhe,bche->bnhc", q_l, k_old) * m["scale"]
-                dT = (torch.einsum("bnhc,bchq->bnhq", _gelu(s_new) * cm, vc_new)
-                      - torch.einsum("bnhc,bchq->bnhq", _gelu(s_old) * cm, vc_old))
+                if self.use_patch_kernel:
+                    # one incr_patch launch; row validity folds into the mask
+                    dT = incr_patch_batched(
+                        state.q[:, li].contiguous(),
+                        k_new.transpose(1, 2).contiguous(),
+                        k_old.transpose(1, 2).contiguous(),
+                        vc_new.transpose(1, 2).contiguous(),
+                        vc_old.transpose(1, 2).contiguous(),
+                        col_mask, row_valid=row_valid)
+                else:
+                    cm = (col_mask * row_valid[:, :, None])[:, :, None, :]
+                    q_l = state.q[:, li]
+                    s_new = torch.einsum("bnhe,bche->bnhc", q_l, k_new) * m["scale"]
+                    s_old = torch.einsum("bnhe,bche->bnhc", q_l, k_old) * m["scale"]
+                    dT = (torch.einsum("bnhc,bchq->bnhq", _gelu(s_new) * cm, vc_new)
+                          - torch.einsum("bnhc,bchq->bnhq", _gelu(s_old) * cm, vc_old))
                 T_all = _put(state.T[:, li] + dT, dirty_idx, new_mask, T_rows)
                 codes = self._requantize(T_all, counts, li)
 
@@ -566,6 +612,18 @@ class JitIncrementalEngine:
             x=take(state.x, 1), q=take(state.q, 1), k=take(state.k, 1),
             v=take(state.v, 1), vc=take(state.vc, 1), T=take(state.T, 1),
             codes=take(state.codes, 1))
+
+    # ------------------------------------------------------------ kv export
+
+    def export_kv(self, state: JitState) -> KVExport:
+        """Gather one document's cached k/v into sequence order — the
+        ``JitState -> KV cache`` bridge for suggestion decoding."""
+        order = sequence_order(state.valid, state.positions)
+        return KVExport(tokens=state.tokens[order], positions=state.positions[order],
+                        order=order.to(torch.int32),
+                        k=torch.index_select(state.k, 1, order),
+                        v=torch.index_select(state.v, 1, order),
+                        n_real=state.n_real)
 
     # ------------------------------------------------------------ outputs
 

@@ -4,8 +4,9 @@ Every open document's ``JitState`` is device-resident ("hot"). The store
 keeps the reference's interface on the serving path — ``register``,
 ``set_hot`` (adopt a replaced state and bump the document's
 ``state_epoch``, which the rollback path reads), ``ensure_hot`` (every
-device-state read goes through it), ``close``, ``tier`` and the byte/doc
-accounting in ``BatchStats`` — so the warm (host RAM) and cold (disk)
+device-state read goes through it), ``close``, ``tier``,
+``note_suggest_bytes`` (the suggestion decode caches, soft state) and the
+byte/doc accounting in ``BatchStats`` — so the warm (host RAM) and cold (disk)
 tiers, LRU eviction and the budgets can land later without touching the
 scheduler. ``admit`` is a no-op: there is no budget to enforce yet.
 """
@@ -23,6 +24,7 @@ class StateStore:
     def __init__(self, *, stats):
         self._stats = stats
         self._nbytes: dict[str, int] = {}  # doc_id -> state footprint
+        self._suggest: dict[str, int] = {}  # doc_id -> decode-cache bytes
 
     def tier(self, doc_id: str) -> str:
         if doc_id not in self._nbytes:
@@ -53,8 +55,19 @@ class StateStore:
     def close(self, doc) -> None:
         """Release a closing document's state."""
         self._stats.bytes_hot -= self._nbytes.pop(doc.doc_id)
+        self._stats.bytes_suggest -= self._suggest.pop(doc.doc_id, 0)
         self._stats.docs_hot -= 1
         doc.state = None
+
+    def note_suggest_bytes(self, doc_id: str, nbytes: int) -> None:
+        """Suggestion decode-cache accounting (the suggester's listener):
+        keeps ``stats.bytes_suggest``. Keys the store does not manage (oracle
+        harnesses) are ignored."""
+        if doc_id not in self._nbytes:
+            return
+        delta = int(nbytes) - self._suggest.get(doc_id, 0)
+        self._suggest[doc_id] = int(nbytes)
+        self._stats.bytes_suggest += delta
 
     def admit(self, nbytes: int, keep: frozenset = frozenset()) -> None:
         """Make room for ``nbytes`` of incoming device state, protecting the

@@ -10,6 +10,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import gated_attention as ga  # noqa: E402
+from repro_torch.kernels import incr_patch as ip  # noqa: E402
+from repro_torch.kernels import vq_assign as vq  # noqa: E402
 from repro_torch.kernels.fused_step import (  # noqa: E402
     LAUNCHES, delta_gate, delta_gate_ref, fused_patch_assign_batched,
     fused_patch_assign_ref,
@@ -84,3 +87,83 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fused_patch_assign_batched(args[0].double(), *args[1:], heads_per_vq=2)
     with pytest.raises(ValueError, match="float32"):
         delta_gate(args[0][0, 0].double(), args[0][0, 0].double(), 1.0)
+
+
+@pytest.mark.parametrize("dv", [128, 384])
+@pytest.mark.parametrize("Q", [64, 256])
+@pytest.mark.parametrize("N", [1, 37, 1024])
+def test_vq_assign_kernel_matches_plain(dev, dv, Q, N, hq=2):
+    gen = torch.Generator(device=dev).manual_seed(N + Q + dv)
+    x = torch.randn((N, hq * dv), generator=gen, device=dev)
+    cb = torch.randn((hq, Q, dv), generator=gen, device=dev) * 0.5
+    before = vq.LAUNCHES["vq_assign"]
+    idx, xq = vq.vq_assign(x, cb)
+    idx_b, xq_b = vq.vq_assign_batched(x.reshape(1, N, -1).repeat(3, 1, 1), cb)
+    torch.cuda.synchronize()
+    assert vq.LAUNCHES["vq_assign"] == before + 2
+    idx_p, _ = vq.vq_assign_ref(x.reshape(N, hq, dv), cb)
+    # codes equal away from near-ties (the dot products sum in another order)
+    s = torch.einsum("nhd,hqd->nhq", x.reshape(N, hq, dv), cb) + vq.codebook_bias(cb)
+    top2 = s.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= 1e-4
+    assert not ((idx != idx_p) & ~near).any()
+    heads = torch.arange(hq, device=dev)
+    assert torch.equal(xq.reshape(N, hq, dv), cb[heads, idx.long()])  # bitwise C[idx]
+    assert torch.equal(idx_b, idx[None].repeat(3, 1, 1)) and torch.equal(xq_b[1], xq)
+
+
+@pytest.mark.parametrize("BH,nq,nk", [(48, 1024, 1024), (48, 1000, 1000), (48, 37, 37),
+                                      (5, 100, 70), (5, 70, 100), (3, 1, 1)])
+def test_gated_attention_kernel_matches_plain(dev, BH, nq, nk):
+    gen = torch.Generator(device=dev).manual_seed(nq + nk)
+    q = torch.randn((BH, nq, 64), generator=gen, device=dev) * 0.5
+    k = torch.randn((BH, nk, 64), generator=gen, device=dev) * 0.5
+    v = torch.randn((BH, nk, 64), generator=gen, device=dev)
+    before = ga.LAUNCHES["gated_attention"]
+    out = ga.gated_attention_bh(q, k, v)
+    torch.cuda.synchronize()
+    assert ga.LAUNCHES["gated_attention"] == before + 1
+    torch.testing.assert_close(out, ga.gated_attention_ref(q, k, v), atol=1e-5, rtol=1e-5)
+
+
+def test_gated_attention_model_layout_gqa(dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((2, 200, 8, 64), generator=gen, device=dev)
+    k = torch.randn((2, 200, 4, 64), generator=gen, device=dev)
+    v = torch.randn((2, 200, 4, 64), generator=gen, device=dev)
+    out = ga.gated_attention(q, k, v)
+    fold = lambda a: a.repeat_interleave(8 // a.shape[2], 2).transpose(1, 2).reshape(16, 200, 64)
+    want = ga.gated_attention_ref(fold(q), fold(k), fold(v))
+    want = want.reshape(2, 8, 200, 64).transpose(1, 2).reshape(2, 200, 512)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("C", [5, 8, 72, 264])
+def test_incr_patch_kernel_matches_plain(dev, C, B=4, R=1024, H=12):
+    gen = torch.Generator(device=dev).manual_seed(C)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    args = [randn(B, R, H, 64), randn(B, H, C, 64), randn(B, H, C, 64),
+            randn(B, H, C, 64), randn(B, H, C, 64),
+            (torch.rand((B, R, C), generator=gen, device=dev) < 0.4).float()]
+    args[5][B - 1] = 0.0  # an all-masked filler document
+    row_valid = (torch.rand((B, R), generator=gen, device=dev) < 0.9).float()
+    before = ip.LAUNCHES["incr_patch"]
+    out = ip.incr_patch_batched(*args, row_valid=row_valid)
+    one = ip.incr_patch(*(a[0].contiguous() for a in args), row_valid=row_valid[0])
+    torch.cuda.synchronize()
+    assert ip.LAUNCHES["incr_patch"] == before + 2
+    want = ip.incr_patch_ref(*args[:5], args[5] * row_valid[..., None])
+    torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-5)
+    assert torch.equal(out[0], one)
+    assert (out[B - 1] == 0).all() and (out[row_valid == 0] == 0).all()
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros((4, 2, 32), device=dev)
+    with pytest.raises(ValueError, match="dh=dv=64"):
+        ga.gated_attention_bh(x, x, x)
+    with pytest.raises(ValueError, match="Q <= 256"):
+        vq.vq_assign(torch.zeros((3, 8), device=dev), torch.zeros((2, 300, 4), device=dev))
+    with pytest.raises(ValueError, match="dh=Q=64"):
+        ip.incr_patch(torch.zeros((3, 2, 16), device=dev), *[torch.zeros((2, 4, 16), device=dev)] * 4,
+                      torch.ones((3, 4), device=dev))
