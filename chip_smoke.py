@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and hold every
 hand-written kernel against its plain PyTorch version.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--sweep]
 
 Phases, one JSON line each with the seconds it took (any failure raises
 and exits non-zero):
@@ -16,8 +16,9 @@ and exits non-zero):
                 25 after warm-up) and with torch.profiler (device time per
                 call): ``fused_step`` (B=4, n=1024, H=12, dh=Q=64, hq=2, C in
                 {8, 72, 264}), ``delta_gate`` (d=768), ``vq_assign`` (hq=2,
-                Q=64, dv=384; B=4 x N=1024, N=1024 and N=1: idx equal away
-                from near-ties, x_q bitwise the codebook row),
+                Q=64, dv=384; B=4 x N=1024, N=1024, N=32 and N=1: idx
+                equal away from near-ties, x_q bitwise the codebook row; the
+                VQ kernel's own device time by name beside the wrapper's),
                 ``gated_attention`` (BH=48, dh=64, n in {1024, 1000, 37},
                 within 1e-5) and ``incr_patch`` (B=4, n=1024, H=12, C in
                 {8, 72, 264}, within 1e-4, all-masked rows exactly 0).
@@ -64,14 +65,20 @@ kernels line come from the path that runs each kernel (serve for
 ``incr_patch``), with the counters set to 0 just before that path; launches
 made to compare or time a kernel do not count. Exits non-zero without a GPU
 and outside a checkout of the repo.
+
+``--sweep`` runs phases 1 and 2, then times ``vq_assign`` at 1 to 4,096
+tokens under the wrapper's schedule rule and with each schedule forced (the
+numbers behind the rule), and prints no ok line.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -111,32 +118,49 @@ def time_ms(fn, warmup: int = 3, iters: int = 25) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, iters: int = 25):
-    """Mean device milliseconds per call: the CUDA kernels (and copies)
-    torch.profiler traced over ``iters`` calls, without the host's launch
-    gaps. None when the trace holds no device time."""
+def device_ms(fn, iters: int = 25, tries: int = 3) -> dict:
+    """Mean device milliseconds per call of each CUDA kernel (and copy)
+    torch.profiler traced over ``iters`` calls, by kernel name, without the
+    host's launch gaps. A trace now and then misses some or all of the
+    device records, so up to ``tries`` traces are taken until one holds
+    every kernel a whole number of times per call; else the last that holds
+    any. Empty when none holds device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / iters / 1e3 if us > 0 else None
+    out = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        out = {e.key: e.self_device_time_total / iters / 1e3 for e in events} or out
+        if events and all(e.count % iters == 0 for e in events):
+            break
+    return out
 
 
-def timings(fn) -> dict:
-    """``ms``: device time per call from the profiler trace, or the event
-    time when the trace holds none; ``call_ms``: CUDA-event time around one
-    call, which includes the host's wrapper work when that is the longer."""
+def timings(fn, kernel: str | None = None) -> dict:
+    """``ms``: device time per call from the profiler trace (every kernel
+    the call launches), or the event time when the trace holds none;
+    ``call_ms``: CUDA-event time around one call, which includes the host's
+    wrapper work when that is the longer. With ``kernel``, also
+    ``kernel_ms``: the device time of the kernels whose name holds it, and
+    ``kernels``: their names."""
     call = time_ms(fn)
-    dev = device_ms(fn)
-    return dict(ms=dev if dev is not None else call, call_ms=call,
-                timing="profiler" if dev is not None else "events")
+    by_name = device_ms(fn)
+    out = dict(ms=sum(by_name.values()) if by_name else call, call_ms=call,
+               timing="profiler" if by_name else "events")
+    if kernel is not None:
+        mine = {k.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void "): v
+                for k, v in by_name.items() if kernel in k}
+        out["kernel_ms"] = sum(mine.values()) or None
+        out["kernels"] = sorted(mine)
+    return out
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -247,15 +271,33 @@ def check_vq_assign(mod, gen, B: int, N: int, hq=2, Q=64, dv=384):
     if not torch.equal(xq[~flips], xq_p[~flips]):
         raise AssertionError(f"vq_assign B={B} N={N}: x_q differs from the plain version")
     err = float((xq - xq_p).abs().max())
-    kernel = timings(call)
+    kernel = timings(call, kernel="vq_assign_")
     plain = timings(lambda: mod.vq_assign_ref(x.reshape(B, N, hq, dv), cb))
     nbytes = 4 * (2 * x.numel() + cb.numel() + B * N * hq)
     bound_ms, bound_by = bound(nbytes, 2 * B * N * hq * Q * dv)
-    return dict(B=B, N=N, max_abs_err=err, near_tie_rows=int(near.sum()),
-                near_tie_flips=int(flips.sum()), ms=kernel["ms"],
+    return dict(B=B, N=N, kernels=kernel["kernels"], max_abs_err=err,
+                near_tie_rows=int(near.sum()), near_tie_flips=int(flips.sum()),
+                ms=kernel["ms"], kernel_ms=kernel["kernel_ms"],
                 call_ms=kernel["call_ms"], plain_ms=plain["ms"],
                 plain_call_ms=plain["call_ms"], timing=kernel["timing"],
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+SWEEP_TOKENS = (1, 32, 128, 256, 384, 512, 1024, 1536, 2048, 4096)
+SWEEP_SCHEDULES = ("small", "large16", "large32")  # vq_assign/ops.py SCHEDULES
+
+
+def sweep_vq_assign(mod, gen) -> None:
+    """``--sweep``: ``vq_assign`` (hq=2, Q=64, dv=384) at each of
+    SWEEP_TOKENS tokens under the wrapper's schedule rule and with each
+    schedule forced, every call first held against the plain version as in
+    the kernels phase; one JSON line a token count."""
+    for n in SWEEP_TOKENS:
+        row = dict(N=n, rule=check_vq_assign(mod, gen, 1, n))
+        for name in SWEEP_SCHEDULES:
+            with mock.patch.object(mod.ops, "schedule", lambda _t, _n=name: _n, create=True):
+                row[name] = check_vq_assign(mod, gen, 1, n)
+        emit("sweep", **row)
 
 
 def check_gated_attention(mod, gen, n: int, BH=48, dh=64):
@@ -631,6 +673,11 @@ def patch_phase(params, cfg, docs, stream, fused) -> dict:
 
 
 def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--sweep", action="store_true",
+                   help="after the build, only time vq_assign over token counts "
+                        "with each schedule forced (no other phase, no ok line)")
+    args = p.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -662,6 +709,10 @@ def main() -> int:
              for l in p.read_text().splitlines() if "registers" in l or "spill" in l]
     emit("build", seconds=time.perf_counter() - t0, compiled=compiled,
          out_dir=str(_build.build_dir().relative_to(ROOT)), ptxas=ptxas)
+    if args.sweep:
+        sweep_vq_assign(vqk, torch.Generator(device="cuda").manual_seed(0))
+        print(smi, flush=True)
+        return 0
 
     # ---- 3. kernels
     t0 = time.perf_counter()
@@ -669,7 +720,7 @@ def main() -> int:
     fused = [check_fused_step(ops, ref, gen, C) for C in (8, 72, 264)]
     gates = [check_delta_gate(ops, ref, gen, r) for r in (64, 1024)]
     gate_timed = check_delta_gate(ops, ref, gen, 4 * 64, timed=True)  # B=4 x R=64
-    vqs = [check_vq_assign(vqk, gen, B, N) for B, N in ((4, 1024), (1, 1024), (1, 1))]
+    vqs = [check_vq_assign(vqk, gen, B, N) for B, N in ((4, 1024), (1, 1024), (1, 32), (1, 1))]
     gas = [check_gated_attention(gak, gen, n) for n in (1024, 1000, 37)]
     ips = [check_incr_patch(ipk, gen, C) for C in (8, 72, 264)]
     emit("kernels", seconds=time.perf_counter() - t0, fused_step=fused,

@@ -9,8 +9,9 @@ import torch
 
 
 def codebook_bias(codebook: torch.Tensor) -> torch.Tensor:
-    """−‖C‖²/2 per code: [hq, Q, dv] -> [hq, Q] f32. The kernel wrapper and
-    this plain version share it, so both add the same bias bits."""
+    """−‖C‖²/2 per code: [hq, Q, dv] -> [hq, Q] f32. The CUDA kernel
+    computes the same bias itself, in another summation order; the card
+    checks excuse an index only where the top-two scores lie within 1e-4."""
     return -0.5 * (codebook.to(torch.float32) ** 2).sum(-1)
 
 

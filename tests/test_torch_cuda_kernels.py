@@ -89,27 +89,53 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         delta_gate(args[0][0, 0].double(), args[0][0, 0].double(), 1.0)
 
 
-@pytest.mark.parametrize("dv", [128, 384])
-@pytest.mark.parametrize("Q", [64, 256])
+def _vq_check(x, cb, idx, xq, near):
+    """Indices equal the plain version's away from near-ties (the dot
+    products sum in another order); x_q bitwise the codebook row."""
+    N, hq = idx.shape
+    idx_p, _ = vq.vq_assign_ref(x.reshape(N, hq, -1), cb)
+    assert not ((idx != idx_p) & ~near).any()
+    heads = torch.arange(hq, device=x.device)
+    assert torch.equal(xq.reshape(N, hq, -1), cb[heads, idx.long()])
+
+
+@pytest.mark.parametrize("dv", [24, 30, 128, 384])  # 30: the scalar path
+@pytest.mark.parametrize("Q", [48, 64, 256])
 @pytest.mark.parametrize("N", [1, 37, 1024])
-def test_vq_assign_kernel_matches_plain(dev, dv, Q, N, hq=2):
+def test_vq_assign_kernel_matches_plain(dev, monkeypatch, dv, Q, N, hq=2):
     gen = torch.Generator(device=dev).manual_seed(N + Q + dv)
     x = torch.randn((N, hq * dv), generator=gen, device=dev)
     cb = torch.randn((hq, Q, dv), generator=gen, device=dev) * 0.5
-    before = vq.LAUNCHES["vq_assign"]
-    idx, xq = vq.vq_assign(x, cb)
-    idx_b, xq_b = vq.vq_assign_batched(x.reshape(1, N, -1).repeat(3, 1, 1), cb)
-    torch.cuda.synchronize()
-    assert vq.LAUNCHES["vq_assign"] == before + 2
-    idx_p, _ = vq.vq_assign_ref(x.reshape(N, hq, dv), cb)
-    # codes equal away from near-ties (the dot products sum in another order)
+    lo, hi = 3, Q - 2  # equal codebook rows, in other warps, lanes and code tiles
+    cb[:, hi] = cb[:, lo]
+    x[0] = cb[:, lo].reshape(-1)  # token 0 sits on code lo (and hi): an exact tie
     s = torch.einsum("nhd,hqd->nhq", x.reshape(N, hq, dv), cb) + vq.codebook_bias(cb)
     top2 = s.topk(2, dim=-1).values
     near = (top2[..., 0] - top2[..., 1]) <= 1e-4
-    assert not ((idx != idx_p) & ~near).any()
-    heads = torch.arange(hq, device=dev)
-    assert torch.equal(xq.reshape(N, hq, dv), cb[heads, idx.long()])  # bitwise C[idx]
-    assert torch.equal(idx_b, idx[None].repeat(3, 1, 1)) and torch.equal(xq_b[1], xq)
+    before = vq.LAUNCHES["vq_assign"]
+    idx, xq = vq.vq_assign(x, cb)  # the schedule the rule picks
+    torch.cuda.synchronize()
+    assert vq.LAUNCHES["vq_assign"] == before + 1
+    _vq_check(x, cb, idx, xq, near)
+    assert (idx[0] == lo).all()
+    # an unaligned codebook (same values) runs the scalar path
+    cb_off = torch.empty(cb.numel() + 1, device=dev)[1:].view(cb.shape).copy_(cb)
+    idx_u, xq_u = vq.vq_assign(x, cb_off)
+    _vq_check(x, cb, idx_u, xq_u, near)
+    assert (idx_u[0] == lo).all()
+    for name in vq.ops.SCHEDULES:  # each schedule and tile, on both sides of the crossovers
+        monkeypatch.setattr(vq.ops, "schedule", lambda _tokens, _n=name: _n)
+        before = vq.LAUNCHES["vq_assign"]
+        idx_s, xq_s = vq.vq_assign(x, cb)
+        idx_b, xq_b = vq.vq_assign_batched(x.reshape(1, N, -1).repeat(3, 1, 1), cb)
+        torch.cuda.synchronize()
+        assert vq.LAUNCHES["vq_assign"] == before + 2
+        _vq_check(x, cb, idx_s, xq_s, near)
+        assert (idx_s[0] == lo).all()
+        # B > 1: one schedule and tile sums a token's scores in one order,
+        # whatever batch it is quantized in: each document equals the unbatched call
+        assert torch.equal(idx_b, idx_s[None].repeat(3, 1, 1))
+        assert torch.equal(xq_b, xq_s[None].repeat(3, 1, 1))
 
 
 @pytest.mark.parametrize("BH,nq,nk", [(48, 1024, 1024), (48, 1000, 1000), (48, 37, 37),

@@ -99,5 +99,18 @@ def test_cpu_calls_do_not_count_and_bias_is_shared():
     before = dict(LAUNCHES)
     vq_assign(torch.tensor(x), torch.tensor(cb))
     assert LAUNCHES == before  # the plain version is not a kernel launch
+    # the plain version's bias (the CUDA kernel sums its own) matches numpy
     np.testing.assert_array_equal(codebook_bias(torch.tensor(cb)).numpy(),
                                   -0.5 * np.sum(cb.astype(np.float32) ** 2, axis=-1))
+
+
+def test_kernel_schedule_rule_has_one_crossover():
+    """The CUDA kernel's schedule is a fixed rule on the token count: a
+    decode step runs the small schedule, the forward's [4, 1024] the
+    32-token tile, and each schedule takes one range of token counts, in
+    the order of ``SCHEDULES`` (one crossover between each two)."""
+    from repro_torch.kernels.vq_assign import ops
+
+    assert ops.schedule(1) == "small" and ops.schedule(4096) == "large32"
+    order = [ops.SCHEDULES.index(ops.schedule(t)) for t in range(1, 4097)]
+    assert order == sorted(order) and set(order) == set(range(len(ops.SCHEDULES)))
