@@ -15,7 +15,9 @@ and exits non-zero):
                 main paths' shapes, then timed with CUDA events (median of
                 25 after warm-up) and with torch.profiler (device time per
                 call): ``fused_step`` (B=4, n=1024, H=12, dh=Q=64, hq=2, C in
-                {8, 72, 264}), ``delta_gate`` (d=768), ``vq_assign`` (hq=2,
+                {8, 72, 264} with a random mask and C=72 with the engine's
+                causal one; the kernel's own device time by name beside the
+                call's), ``delta_gate`` (d=768), ``vq_assign`` (hq=2,
                 Q=64, dv=384; B=4 x N=1024, N=1024, N=32 and N=1: idx
                 equal away from near-ties, x_q bitwise the codebook row; the
                 VQ kernel's own device time by name beside the wrapper's),
@@ -27,7 +29,8 @@ and exits non-zero):
                 and 1000 tokens) and a seeded mixed edit stream that forces
                 a grow, a defrag and an overflow fallback; tokens must equal
                 a host replay, logits must be finite, and ``fused_step`` must
-                launch 12 times per edit dispatch.
+                launch 12 times per edit dispatch; a census of the (B, n, C)
+                shapes its calls ran at (also in the profiled rounds).
 5. parity     — the same stream through ``use_fused_kernel=False``: equal
                 tokens, counters and codes, logits within 1e-3 (a code may
                 differ only at a near-tie, top-two scores within 1e-5).
@@ -68,11 +71,14 @@ and outside a checkout of the repo.
 
 ``--sweep`` runs phases 1 and 2, then times ``vq_assign`` at 1 to 4,096
 tokens under the wrapper's schedule rule and with each schedule forced (the
-numbers behind the rule), and prints no ok line.
+numbers behind the rule), and ``fused_step`` against its plain version at
+B in {1, 4}, n=1024, C in {8, 72, 136, 264}, at 1x1024x1032 and at
+n=4096, and prints no ok line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -173,16 +179,52 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 # ------------------------------------------------------------------ kernels
 
 
-def check_fused_step(ops, ref, gen, C: int, B=4, n=1024, H=12, dh=64, Q=64, hq=2):
+def engine_mask(gen, B: int, n: int, C: int, lengths=(256, 300, 700, 1000)):
+    """A patch mask built as the engine builds it (``jit_engine``'s fused
+    step): column c is the slot ``col[b, c]`` (sorted, as the engine's
+    lowest-slot-first pick), live where its position id is at most the
+    row's (causal order), times row validity (the document's length),
+    times not dirty (the first C - 8 columns are the changed rows, whose
+    full recompute is in ``T_base``). Positions are sorted sampled ids, so
+    whole (row tile, column tile) pairs above the diagonal are zero. The
+    last document is a dispatch's filler: all zero."""
+    dev = torch.device("cuda")
+    mask = torch.zeros((B, n, C), device=dev)
+    for b in range(B - 1):
+        length = min(lengths[b % len(lengths)], n)
+        pos = torch.randperm(4 * n, generator=gen, device=dev)[:n].sort().values
+        col = torch.randperm(length, generator=gen, device=dev)[:C].sort().values
+        if col.numel() < C:  # fewer slots than columns: repeat the last
+            col = torch.cat([col, col[-1:].expand(C - col.numel())])
+        row_valid = (torch.arange(n, device=dev) < length).float()
+        dirty = torch.zeros(n, device=dev)
+        dirty[col[:max(C - 8, 0)]] = 1.0
+        causal = (pos[col][None, :] <= pos[:, None]).float()
+        mask[b] = causal * (row_valid * (1.0 - dirty))[:, None]
+    return mask
+
+
+def check_fused_step(ops, ref, gen, C: int, B=4, n=1024, H=12, dh=64, Q=64, hq=2,
+                     causal: bool = False):
+    """``fused_patch_assign_batched`` against the plain version: T within
+    1e-4 (rtol 1e-5), codes equal away from near-ties, fully masked rows
+    bitwise ``T_base`` (sign bits of -0.0 included). The mask is random
+    (~38% live; every 7th row and, for B > 1, the last document dead) or,
+    with ``causal``, the engine's."""
     dev = torch.device("cuda")
     g = H // hq
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     q, k_new, k_old = randn(B, n, H, dh), randn(B, H, C, dh), randn(B, H, C, dh)
     vc_new, vc_old = randn(B, H, C, Q), randn(B, H, C, Q)
-    mask = (torch.rand((B, n, C), generator=gen, device=dev) < 0.6).float()
-    mask[:, ::7] = 0.0  # fully masked rows (dirty rows, free slots)
-    mask[B - 1] = 0.0  # a dispatch's filler document
+    if causal:
+        mask = engine_mask(gen, B, n, C)
+    else:
+        mask = (torch.rand((B, n, C), generator=gen, device=dev) < 0.6).float()
+        mask[:, ::7] = 0.0  # fully masked rows (dirty rows, free slots)
+        if B > 1:
+            mask[B - 1] = 0.0  # a dispatch's filler document
     T_base = randn(B, n, H, Q)
+    T_base[:, ::5, :, :3] = -0.0  # a dead row must keep its sign bits
     counts = torch.randint(1, n + 1, (B, n), generator=gen, device=dev).float()
     vq_bias = randn(hq, Q)
     args = (q, k_new, k_old, vc_new, vc_old, mask, T_base, counts, vq_bias)
@@ -200,19 +242,21 @@ def check_fused_step(ops, ref, gen, C: int, B=4, n=1024, H=12, dh=64, Q=64, hq=2
         raise AssertionError(
             f"fused_step C={C}: {int((flips & ~near).sum())} codes differ away from near-ties")
     dead = mask.sum(-1) == 0  # [B, n]
-    if not torch.equal(T_k[dead], T_base[dead]):
-        raise AssertionError(f"fused_step C={C}: fully masked rows changed T_base")
-    kernel = timings(lambda: ops.fused_patch_assign_batched(*args, heads_per_vq=g))
+    if not torch.equal(T_k[dead].view(torch.int32), T_base[dead].view(torch.int32)):
+        raise AssertionError(f"fused_step C={C}: fully masked rows are not bitwise T_base")
+    kernel = timings(lambda: ops.fused_patch_assign_batched(*args, heads_per_vq=g),
+                     kernel="fused_step")
     plain = timings(lambda: ref.fused_patch_assign_ref(*args))
     live = float(mask.sum())
     nbytes = 4 * (sum(a.numel() for a in args) + T_k.numel() + codes_k.numel())
     flops = live * H * (4 * dh + 4 * Q) + 2 * B * n * H * Q + 2 * B * n * hq * Q
     bound_ms, bound_by = bound(nbytes, flops)
-    return dict(C=C, max_abs_err=err, near_tie_rows=int(near.sum()),
+    return dict(B=B, n=n, C=C, mask="causal" if causal else "random",
+                max_abs_err=err, near_tie_rows=int(near.sum()),
                 near_tie_flips=int(flips.sum()), masked_rows=int(dead.sum()),
-                ms=kernel["ms"], call_ms=kernel["call_ms"], plain_ms=plain["ms"],
-                plain_call_ms=plain["call_ms"], timing=kernel["timing"],
-                bound_ms=bound_ms, bound_by=bound_by,
+                ms=kernel["ms"], kernel_ms=kernel["kernel_ms"], call_ms=kernel["call_ms"],
+                plain_ms=plain["ms"], plain_call_ms=plain["call_ms"],
+                timing=kernel["timing"], bound_ms=bound_ms, bound_by=bound_by,
                 live_mask_fraction=live / mask.numel())
 
 
@@ -298,6 +342,18 @@ def sweep_vq_assign(mod, gen) -> None:
             with mock.patch.object(mod.ops, "schedule", lambda _t, _n=name: _n, create=True):
                 row[name] = check_vq_assign(mod, gen, 1, n)
         emit("sweep", **row)
+
+
+SWEEP_FUSED = (tuple((B, 1024, C) for B in (1, 4) for C in (8, 72, 136, 264))
+               + ((1, 1024, 1032), (1, 4096, 72)))  # 1x1024x1032: the most served step
+
+
+def sweep_fused_step(ops, ref, gen) -> None:
+    """``--sweep``: ``fused_step`` (H=12, hq=2, random mask) at each (B, n,
+    C) of SWEEP_FUSED, kernel against plain, each call first held against
+    the plain version as in the kernels phase; one JSON line a shape."""
+    for B, n, C in SWEEP_FUSED:
+        emit("sweep", kernel="fused_step", **check_fused_step(ops, ref, gen, C, B=B, n=n))
 
 
 def check_gated_attention(mod, gen, n: int, BH=48, dh=64):
@@ -479,6 +535,26 @@ def reset_launches() -> None:
         m.reset_launches()
 
 
+@contextlib.contextmanager
+def fused_step_census():
+    """Count the (B, n, C) shapes of the engine's ``fused_step`` calls while
+    the block runs. The engine imports the wrapper by name, so the name is
+    wrapped in ``jit_engine``; the wrapper itself is untouched. Yields a
+    dict that fills with {"BxnxC": calls}."""
+    from repro_torch.serving import jit_engine
+
+    census: dict[str, int] = {}
+    call = jit_engine.fused_patch_assign_batched
+
+    def counted(q, k_new, *args, **kw):
+        key = f"{q.shape[0]}x{q.shape[1]}x{k_new.shape[2]}"
+        census[key] = census.get(key, 0) + 1
+        return call(q, k_new, *args, **kw)
+
+    with mock.patch.object(jit_engine, "fused_patch_assign_batched", counted):
+        yield census
+
+
 def padded_batch(docs: dict, pool: int, width: int):
     """The documents as one [len(docs), width] batch: tokens in order, their
     allocator's sampled (gapped) position ids, padding after the last real
@@ -596,9 +672,11 @@ def suggest_phase(params, cfg, docs: dict, stream, n_new: int = 8, appends: int 
     vq_launches, near_ties, checked, prof = 0, 0, 0, None
     for r, batch in enumerate(rounds):
         if batch is None:
-            prof = profile_round(srv, [(did, Edit("replace", srv.docs[did].n - 1,
-                                                  int(rng.integers(cfg.vocab))))
-                                       for did in docs])
+            with fused_step_census() as census:
+                prof = profile_round(srv, [(did, Edit("replace", srv.docs[did].n - 1,
+                                                      int(rng.integers(cfg.vocab))))
+                                           for did in docs])
+            prof["fused_step_shapes"] = census
         else:
             for did, e in batch:
                 srv.submit_edit(did, e)
@@ -676,7 +754,8 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--sweep", action="store_true",
                    help="after the build, only time vq_assign over token counts "
-                        "with each schedule forced (no other phase, no ok line)")
+                        "with each schedule forced and fused_step over (B, n, C) "
+                        "(no other phase, no ok line)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -711,6 +790,7 @@ def main() -> int:
          out_dir=str(_build.build_dir().relative_to(ROOT)), ptxas=ptxas)
     if args.sweep:
         sweep_vq_assign(vqk, torch.Generator(device="cuda").manual_seed(0))
+        sweep_fused_step(ops, ref, torch.Generator(device="cuda").manual_seed(0))
         print(smi, flush=True)
         return 0
 
@@ -718,6 +798,7 @@ def main() -> int:
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     fused = [check_fused_step(ops, ref, gen, C) for C in (8, 72, 264)]
+    fused.append(check_fused_step(ops, ref, gen, 72, causal=True))
     gates = [check_delta_gate(ops, ref, gen, r) for r in (64, 1024)]
     gate_timed = check_delta_gate(ops, ref, gen, 4 * 64, timed=True)  # B=4 x R=64
     vqs = [check_vq_assign(vqk, gen, B, N) for B, N in ((4, 1024), (1, 1024), (1, 32), (1, 1))]
@@ -737,8 +818,12 @@ def main() -> int:
             for did, n in DOC_LENGTHS.items()}
     stream = make_stream(cfg.vocab)
     reset_launches()
-    srv, lat = serve(params, cfg, docs, stream)
+    with fused_step_census() as serve_shapes:
+        srv, lat = serve(params, cfg, docs, stream)
     serve_launches = dict(ops.LAUNCHES)
+    if sum(serve_shapes.values()) != serve_launches["fused_step"]:
+        raise AssertionError(f"serve: the shape census counted {sum(serve_shapes.values())} "
+                             f"fused_step calls, the wrapper {serve_launches['fused_step']}")
     st = srv.stats
     for did, toks in docs.items():
         replay = apply_edits(toks, [e for batch in stream for d, e in batch if d == did])
@@ -756,6 +841,7 @@ def main() -> int:
     total_s = lat.total_ms / 1e3
     emit("serve", seconds=time.perf_counter() - t0, nvidia_smi=smi, init_params_s=init_s, edits=st.edits_applied,
          edit_dispatches=st.batch_steps, launches=serve_launches,
+         fused_step_shapes=serve_shapes,
          grows=st.grows, defrags=st.defrags, overflows=st.overflows,
          full_forwards=st.full_forwards, traced_shapes=st.traced_shapes,
          mean_batch=st.mean_batch, edits_per_s=st.edits_applied / total_s,
@@ -808,8 +894,10 @@ def main() -> int:
 
     # ---- 8. where the time goes: one more profiled round on the served fleet
     t0 = time.perf_counter()
-    prof = profile_round(srv, make_stream(
-        cfg.vocab, seed=1, rounds=1, lens={d: srv.docs[d].n for d in docs})[0])
+    with fused_step_census() as census:
+        prof = profile_round(srv, make_stream(
+            cfg.vocab, seed=1, rounds=1, lens={d: srv.docs[d].n for d in docs})[0])
+    prof["fused_step_shapes"] = census
     emit("profile", seconds=time.perf_counter() - t0, nvidia_smi=smi, **prof)
 
     # ---- 9. forward: the model's own entry point
@@ -824,7 +912,7 @@ def main() -> int:
     emit("suggest", seconds=time.perf_counter() - t0, nvidia_smi=smi, **sug)
 
     # ---- summary
-    c72 = next(f for f in fused if f["C"] == 72)
+    c72 = next(f for f in fused if f["C"] == 72 and f["mask"] == "random")
     kernels = [
         dict(name="fused_step", route="cuda", source="src/repro_torch/csrc/fused_step.cu",
              replaces="src/repro/kernels/fused_step/fused_step.py:179",

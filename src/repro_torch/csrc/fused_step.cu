@@ -19,34 +19,64 @@
 // with the first maximum on ties (as torch.argmax and jnp.argmax).
 //
 // What bounds it on an H100: the patch is ~512 FP32 flops per live (row,
-// column, head) against ~42 MB of compulsory traffic at the main path's
+// column, head) against ~42 MB of compulsory traffic at the kernels check's
 // shapes (B=4, n=1024, H=12, dh=Q=64: q, T_base, T and the mask), ~13 us at
 // 3.35 TB/s. With 38% of the mask live, C=72 is ~0.7 GFLOP, ~10 us at the
-// 67 TFLOP/s FP32 (non-tensor) peak, so bytes bound it there and at layer 0
-// (C=8); operations bound it past ~100 columns (C=264: ~38 us), which the
-// overflow fallback reaches as it doubles R (C = R + 8).
+// 67 TFLOP/s FP32 (non-tensor) peak, so bytes bound it at C=72 (0.0127 ms)
+// and at layer 0 (C=8, 0.0114 ms); operations bound it past ~100 columns
+// (C=264: 0.0383 ms), which the overflow fallback reaches as it doubles R
+// (C = R + 8). The served steps are single documents at C = 8 to 1032.
 //
-// What the design does about it (simple and correct first):
-// * one block per (row tile of 32 rows, vq head, document); 4 threads per
-//   row, each owning a strided quarter of dh and of Q, so the row's T slice,
-//   its per-head patch sums and its score sum live in registers and q,
-//   T_base and T cross device memory exactly once;
-// * the k_new/k_old/vc_new/vc_old tiles of one head (4 x 32 columns x 64
-//   floats) and the mask tile are staged once per block in shared memory and
-//   reused by all 32 rows; the strided ownership keeps the shared-memory
-//   reads free of bank conflicts;
-// * a masked (row, column) pair skips its gelu and its two axpys, and a row
-//   whose mask is all zero returns T_base bitwise (the patch sums start at
-//   -0.0 - 0.0 = -0.0, and x + -0.0 == x for every x);
-// * the products run on the FP32 CUDA cores in full precision. TF32 tensor
-//   cores would flip VQ codes; a split-precision wgmma version is later work.
+// The design, a flash-style two-stage product per (64-row tile, head):
+// * One CTA per (64-row tile, attention head, document), 256 threads, two
+//   an SM (~104 KB of dynamic shared memory, 128 registers): B=1, n=1024,
+//   H=12 gives 192 CTAs. The old kernel's 32-row block walked its g heads
+//   one after another over 128 threads (256 blocks at B=4, 64 at B=1).
+// * S = q k^T over a 32-column tile, register-tiled: a thread owns 4 rows x 4
+//   columns of S_new or S_old (a 16-byte shared load feeds 8 FMAs); W =
+//   gelu(scale S) m is computed once per (row, column, head), as the plain
+//   version does (a branch that skipped the tanhf where m = 0 was slower),
+//   and goes to shared memory transposed. The old kernel read one shared
+//   float per FMA and evaluated each GELU on 4 lanes.
+// * dT += W vc, register-tiled: a thread owns 4 rows x 8 codes of dT_new or
+//   of dT_old (kept apart, subtracted once in the epilogue, where the old
+//   product's threads hand theirs over in shared memory). Each sum runs in
+//   the plain version's order (d, then c, ascending): T matched the plain
+//   version bitwise in every case measured.
+// * The q tile and the k_new/k_old/vc_new/vc_old column tiles are copied
+//   with 16-byte cp.async into a double-buffered ring: tile t + 1 is in
+//   flight while tile t is used; T_base follows into the q tile's place
+//   once the last tile's S is done, so its read overlaps the last product.
+// * Dead work is skipped: a row tile whose mask is all zero (found by a scan
+//   that stops at the first live entry) stages no q or k/vc and writes
+//   T_base; a (row tile, column tile) pair whose mask is all zero
+//   (__syncthreads_or) skips both products; a row with no live column
+//   writes T_base itself, so -0.0 keeps its sign.
+// * The requantize needs the g heads of a vq head: each CTA writes its T,
+//   and the last of the g CTAs of a (row tile, vq head) to arrive (an
+//   atomic count, reset by that CTA) sums their T rows from L2 in head
+//   order j = 0..g-1 and takes the first maximum; the others leave at once.
+//   (A thread-block cluster that summed over distributed shared memory
+//   held every CTA until the slowest of its cluster; it was slower.)
+// * Everything is full FP32 on the CUDA cores: TF32 tensor cores flip VQ
+//   codes (a split-precision version is later work).
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W; device ms by
+// kernel name at B=4, n=1024, 38% live): 0.0331 / 0.0798 / 0.2117 at C = 8
+// / 72 / 264 (old kernel 0.0409 / 0.2231 / 0.7662; plain 0.1185 / 0.2144 /
+// 0.5605); B=1: 0.0164 / 0.0328 / 0.0890 / 0.3002 at C = 8 / 72 / 264 /
+// 1032 (old 0.0301 / 0.1634 / 0.5604 at C <= 264). What holds it:
+// shared-memory operand traffic (2-2.7 FMAs a loaded float where 4 would
+// balance the FP32 pipes), 128 registers with small spills, and the
+// grid's tail (576 busy CTAs at B=4 fill 2.2 waves of 264 slots; 192 at
+// B=1 leave 72 SMs with one CTA).
 //
 // delta_gate: one warp per row, a strided max of |x_new - x_old| and a warp
 // shuffle reduce, then the strict compare. Bytes-bound (2 x r x d floats);
 // max, abs and > are exact, so keep bits equal the plain version bitwise.
 //
-// Plain C interface, loaded with ctypes; each launcher returns
-// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+// Plain C interface, loaded with ctypes; each launcher returns the CUDA
+// error of its launch so the Python wrapper can raise on a refused launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,20 +91,74 @@ using repro_torch::takes_first_max;
 
 constexpr int DH = 64;                   // head dim (every served config)
 constexpr int QC = 64;                   // codebook size
-constexpr int ROWS = 32;                 // rows per block
-constexpr int LANES = 4;                 // threads per row
-constexpr int SLICE = DH / LANES;        // dims (and codes) per thread
-constexpr int CT = 32;                   // columns per shared-memory tile
-constexpr int THREADS = ROWS * LANES;    // 128
+constexpr int RT = 64;                   // rows per CTA
+constexpr int CT = 32;                   // columns per tile
+constexpr int THREADS = 4 * RT;
+constexpr int WARPS = THREADS / 32;
+constexpr int PAD = DH + 4;              // padded stride of a staged q row, k / vc column
+constexpr int WS = RT + 4;               // padded stride of W^T [column][row]
 constexpr int GATE_WARPS = 8;            // rows per delta_gate block
 
-static_assert(DH == QC, "one ownership pattern serves dh and Q");
-static_assert(LANES == 4, "the row reduction below shuffles over 4 lanes");
+static_assert(DH == QC, "one staging pattern serves q, k, vc and T_base");
 
-__global__ void __launch_bounds__(THREADS)
+// dynamic shared memory, in floats
+constexpr int Q_FLOATS = RT * PAD;                // q tile [RT][PAD]
+constexpr int STAGE_FLOATS = 4 * CT * PAD;        // k_new, k_old, vc_new, vc_old
+constexpr int RING_FLOATS = 2 * STAGE_FLOATS;     // two stages
+constexpr int W_FLOATS = 2 * CT * WS;             // W^T new and old [CT][WS]
+constexpr int SMEM_BYTES = 4 * (Q_FLOATS + RING_FLOATS + W_FLOATS) + 4 * (RT + 1);
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;  // 0: zero-fill, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// S[i][j] = q row i . k column (8 j) over DH for the first NJ column
+// groups: q_r points at the thread's first q row, k_c at its first column.
+template <int NJ>
+__device__ __forceinline__ void s_product(const float* q_r, const float* k_c,
+                                          float (&acc)[4][4]) {
+#pragma unroll 4
+  for (int d = 0; d < DH; d += 4) {
+    float4 qv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qv[i] = ld4(q_r + i * PAD + d);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float4 kv = ld4(k_c + 8 * j * PAD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float a = acc[i][j];
+        a = fmaf(qv[i].x, kv.x, a);
+        a = fmaf(qv[i].y, kv.y, a);
+        a = fmaf(qv[i].z, kv.z, a);
+        a = fmaf(qv[i].w, kv.w, a);
+        acc[i][j] = a;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 fused_step_kernel(const float* __restrict__ q,       // [B, n, H, DH]
                   const float* __restrict__ k_new,   // [B, H, C, DH]
-                  const float* __restrict__ k_old,    // [B, H, C, DH]
+                  const float* __restrict__ k_old,   // [B, H, C, DH]
                   const float* __restrict__ vc_new,  // [B, H, C, QC]
                   const float* __restrict__ vc_old,  // [B, H, C, QC]
                   const float* __restrict__ mask,    // [B, n, C]
@@ -83,118 +167,270 @@ fused_step_kernel(const float* __restrict__ q,       // [B, n, H, DH]
                   const float* __restrict__ vq_bias, // [hq, QC]
                   float* __restrict__ t_out,         // [B, n, H, QC]
                   int* __restrict__ codes,           // [B, n, hq]
+                  int* __restrict__ arrived,         // [B, ceil(n / RT), hq], zero
                   int n, int H, int C, int g, float scale) {
-  __shared__ float s_kn[CT][DH];
-  __shared__ float s_ko[CT][DH];
-  __shared__ float s_vn[CT][QC];
-  __shared__ float s_vo[CT][QC];
-  __shared__ float s_mask[ROWS][CT + 1];
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                  // [RT][PAD]: q, then T_base
+  float* ring = q_s + Q_FLOATS;       // [2][4][CT][PAD]
+  float* w_s = ring + RING_FLOATS;    // [2][CT][WS]
+  int* row_live = reinterpret_cast<int*>(w_s + W_FLOATS);  // [RT]
+  int* is_last = row_live + RT;
 
+  const int h = blockIdx.y;           // attention head
+  const int hh = h / g;               // its vq head
+  const int hq = H / g;
   const int b = blockIdx.z;
-  const int hh = blockIdx.y;
-  const int hq = gridDim.y;
-  const int row0 = blockIdx.x * ROWS;
+  const int row0 = blockIdx.x * RT;
   const int tid = threadIdx.x;
-  const int r = tid / LANES;     // row within the tile
-  const int lane = tid % LANES;  // owns dims / codes lane, lane+4, lane+8, ...
-  const int row = row0 + r;
-  const bool live = row < n;     // rows past n compute garbage, write nothing
+  const int warp = tid / 32, lane = tid % 32;
+  const int nt = (C + CT - 1) / CT;
+  const float* mask_b = mask + (size_t)b * n * C;
+  const size_t col0 = ((size_t)b * H + h) * C;  // first column of (b, h)
 
-  float acc[SLICE];  // sum over the g heads of T[b, row, h, owned codes]
+  auto stage = [&](int t, int s) {  // copy column tile t into ring slot s
+    const int c0 = t * CT;
 #pragma unroll
-  for (int i = 0; i < SLICE; ++i) acc[i] = 0.0f;
-
-  for (int j = 0; j < g; ++j) {
-    const int h = hh * g + j;
-    float qs[SLICE];
-    const size_t q_off = (((size_t)b * n + (live ? row : 0)) * H + h) * DH;
+    for (int a = 0; a < 4; ++a) {  // CT columns x 16 chunks of 16 bytes each
+      const float* src = (a == 0 ? k_new : a == 1 ? k_old : a == 2 ? vc_new : vc_old)
+                         + col0 * DH;
 #pragma unroll
-    for (int i = 0; i < SLICE; ++i) qs[i] = q[q_off + i * LANES + lane];
-    float d_new[SLICE], d_old[SLICE];
-#pragma unroll
-    for (int i = 0; i < SLICE; ++i) {
-      d_new[i] = -0.0f;
-      d_old[i] = 0.0f;
+      for (int k = 0; k < CT * 16 / THREADS; ++k) {
+        const int e = tid + k * THREADS;
+        const int c = e / 16, d4 = e % 16;
+        const bool ok = c0 + c < C;
+        cp_async16(ring + s * STAGE_FLOATS + (a * CT + c) * PAD + 4 * d4,
+                   src + (size_t)(ok ? c0 + c : 0) * DH + 4 * d4, ok);
+      }
     }
-    const size_t col0 = ((size_t)b * H + h) * C;  // first column of (b, h)
-    for (int c0 = 0; c0 < C; c0 += CT) {
-      const int ct = min(CT, C - c0);
-      __syncthreads();  // every thread is done with the previous tile
-      for (int e = tid; e < ct * DH; e += THREADS) {
-        const int c = e / DH, d = e % DH;
-        const size_t src = (col0 + c0 + c) * DH + d;
-        s_kn[c][d] = k_new[src];
-        s_ko[c][d] = k_old[src];
+  };
+  // the tile's rows of a [B, n, H, DH] array at head h into q_s, zero past n
+  auto stage_rows = [&](const float* src) {
+#pragma unroll
+    for (int k = 0; k < RT * 16 / THREADS; ++k) {
+      const int e = tid + k * THREADS;
+      const int r = e / 16, d4 = e % 16;
+      const int row = row0 + r;
+      const bool ok = row < n;
+      cp_async16(q_s + r * PAD + 4 * d4,
+                 src + (((size_t)b * n + (ok ? row : 0)) * H + h) * DH + 4 * d4, ok);
+    }
+  };
+
+  // ---- does any row of the tile have a live column? (stops at the first
+  // chunk of the mask that holds one: at once for a live tile)
+  if (tid < RT) row_live[tid] = 0;
+  bool tile_live = false;
+  {
+    const size_t len = (size_t)min(RT, n - row0) * C;
+    const float* mt = mask_b + (size_t)row0 * C;
+    for (size_t base = 0; base < len && !tile_live; base += 8 * THREADS) {
+      bool any = false;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const size_t e = base + tid + k * THREADS;
+        any |= e < len && __ldg(mt + e) != 0.0f;
       }
-      for (int e = tid; e < ct * QC; e += THREADS) {
-        const int c = e / QC, d = e % QC;
-        const size_t src = (col0 + c0 + c) * QC + d;
-        s_vn[c][d] = vc_new[src];
-        s_vo[c][d] = vc_old[src];
+      tile_live = __syncthreads_or(any);
+    }
+  }
+
+  // A thread works on one product, mat (0 new, 1 old), at (sr, sc) of a
+  // 16 x 8 grid. S (phases A, B): rows 4 sr + i, columns sc + 8 j; a
+  // quarter warp shares sr (broadcast q loads) and reads 8 k columns a step.
+  // dT (phase C, epilogue): rows 4 sr + i, codes 4 sc + e and 32 + 4 sc + e
+  // (2.7 FMAs a loaded float); a quarter warp shares sr (a broadcast W
+  // load) and reads 128 contiguous bytes of vc.
+  const int mat = tid / (2 * RT);
+  const int sr = (tid % (2 * RT)) / 8, sc = tid % 8;
+
+  const int t_end = tile_live ? nt : 0;
+  if (t_end == 0) {
+    stage_rows(t_base);
+  } else {
+    stage_rows(q);
+    stage(0, 0);
+  }
+  cp_async_commit();
+
+  float acc[4][8];  // dT of product mat
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[i][e] = 0.0f;
+  for (int t = 0; t < t_end; ++t) {
+    const int s = t & 1;
+    const bool last = t + 1 == t_end;
+    const int c0 = t * CT;
+    const int ct = min(CT, C - c0);
+    // the mask of the S micro-tile, loaded before the wait so its latency hides
+    float m[4][4];
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = row0 + 4 * sr + i, c = c0 + sc + 8 * j;
+        m[i][j] = (row < n && c < C) ? __ldg(mask_b + (size_t)row * C + c) : 0.0f;
+        any |= m[i][j] != 0.0f;
       }
-      for (int e = tid; e < ROWS * ct; e += THREADS) {
-        const int rr = e / ct, c = e % ct;
-        const int grow = row0 + rr;
-        s_mask[rr][c] = grow < n ? mask[((size_t)b * n + grow) * C + c0 + c] : 0.0f;
+    cp_async_wait<0>();  // tile t (and the q tile) have landed
+    // every thread is done with tile t - 1 (ring slot s ^ 1 and W are free);
+    // a dead (row tile, column tile) pair skips both products
+    const bool live = __syncthreads_or(any);
+    if (!last) stage(t + 1, s ^ 1);  // in flight while this tile is used
+    cp_async_commit();
+    if (!live) {
+      if (last) {  // T_base replaces q, its read overlapping the last tile
+        stage_rows(t_base);
+        cp_async_commit();
       }
-      __syncthreads();
+    } else {
+      // ---- phase A: S (new or old) for rows 4 sr + i, columns sc + 8 j
+      float acc_s[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc_s[i][j] = 0.0f;
+      const float* q_r = q_s + 4 * sr * PAD;
+      const float* k_c = ring + s * STAGE_FLOATS + (mat * CT + sc) * PAD;
+      switch ((ct + 7) / 8) {  // the column groups that hold a column
+        case 4: s_product<4>(q_r, k_c, acc_s); break;
+        case 3: s_product<3>(q_r, k_c, acc_s); break;
+        case 2: s_product<2>(q_r, k_c, acc_s); break;
+        default: s_product<1>(q_r, k_c, acc_s); break;
+      }
+      // ---- phase B: W = gelu(scale S) m, once per (row, column), to W^T
+      // as float4 over the thread's 4 rows; a row with a live column is
+      // marked
+      float* wt = w_s + mat * CT * WS + 4 * sr;
+      float wv[4][4];
+      bool row_any[4] = {};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float mm = m[i][j];
+          row_any[i] |= mm != 0.0f;
+          wv[j][i] = gelu_tanh(acc_s[i][j] * scale) * mm;
+        }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        st4(wt + (sc + 8 * j) * WS, make_float4(wv[j][0], wv[j][1], wv[j][2], wv[j][3]));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (row_any[i]) row_live[4 * sr + i] = 1;  // racing stores of one value
+      __syncthreads();  // W is whole; q_s is free
+      if (last) {  // T_base replaces q, its read overlapping phase C
+        stage_rows(t_base);
+        cp_async_commit();
+      }
+
+      // ---- phase C: dT += W vc for product mat
+      const float* vt = ring + s * STAGE_FLOATS + (2 + mat) * CT * PAD + 4 * sc;
+      const float* wt_c = w_s + mat * CT * WS + 4 * sr;
+#pragma unroll 8
       for (int c = 0; c < ct; ++c) {
-        float pn = 0.0f, po = 0.0f;
+        const float4 w = ld4(wt_c + c * WS);
+        const float4 v0 = ld4(vt + c * PAD), v1 = ld4(vt + c * PAD + 32);
+        const float wr[4] = {w.x, w.y, w.z, w.w};
+        const float vr[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
 #pragma unroll
-        for (int i = 0; i < SLICE; ++i) {
-          pn = fmaf(qs[i], s_kn[c][i * LANES + lane], pn);
-          po = fmaf(qs[i], s_ko[c][i * LANES + lane], po);
-        }
-        // the 4 threads of a row are adjacent lanes: butterfly over them
-        pn += __shfl_xor_sync(0xffffffffu, pn, 1);
-        po += __shfl_xor_sync(0xffffffffu, po, 1);
-        pn += __shfl_xor_sync(0xffffffffu, pn, 2);
-        po += __shfl_xor_sync(0xffffffffu, po, 2);
-        const float m = s_mask[r][c];
-        if (m != 0.0f) {
-          const float wn = gelu_tanh(pn * scale) * m;
-          const float wo = gelu_tanh(po * scale) * m;
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int i = 0; i < SLICE; ++i) {
-            d_new[i] = fmaf(wn, s_vn[c][i * LANES + lane], d_new[i]);
-            d_old[i] = fmaf(wo, s_vo[c][i * LANES + lane], d_old[i]);
-          }
-        }
+          for (int e = 0; e < 8; ++e) acc[i][e] = fmaf(wr[i], vr[e], acc[i][e]);
       }
     }
-    const size_t t_off = (((size_t)b * n + (live ? row : 0)) * H + h) * QC;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // T_base is in q_s; the ring is free
+
+  // ---- epilogue: the old product's threads leave dT_old in shared memory
+  // (the free ring); the new product's write T = T_base + (dT_new -
+  // dT_old), or T_base itself for a row with no live column (so -0.0 keeps
+  // its sign)
+  float* dold_s = ring;  // [RT][PAD]
+  if (mat == 1) {
 #pragma unroll
-    for (int i = 0; i < SLICE; ++i) {
-      const int e = i * LANES + lane;
-      const float t = t_base[t_off + e] + (d_new[i] - d_old[i]);
-      if (live) t_out[t_off + e] = t;
-      acc[i] = (j == 0) ? t : acc[i] + t;
+    for (int i = 0; i < 4; ++i) {
+      float* d = dold_s + (4 * sr + i) * PAD + 4 * sc;
+      st4(d, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+      st4(d + 32, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
+    }
+  }
+  __syncthreads();
+  if (mat == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * sr + i;
+      const int row = row0 + r;
+      if (row >= n) break;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int code = 4 * sc + 32 * half;
+        float4 tv = ld4(q_s + r * PAD + code);  // T_base
+        if (row_live[r]) {
+          const float4 od = ld4(dold_s + r * PAD + code);
+          tv.x += acc[i][4 * half + 0] - od.x;
+          tv.y += acc[i][4 * half + 1] - od.y;
+          tv.z += acc[i][4 * half + 2] - od.z;
+          tv.w += acc[i][4 * half + 3] - od.w;
+        }
+        st4(t_out + (((size_t)b * n + row) * H + h) * QC + code, tv);
+      }
     }
   }
 
-  // requantize: scores = acc / counts + vq_bias, first maximum over Q
-  const float cnt = counts[(size_t)b * n + (live ? row : 0)];
-  float best = 0.0f;
-  int best_idx = -1;
+  // ---- requantize: the last of the g CTAs of (row tile, vq head) to
+  // finish sums their T rows in head order j = 0..g-1 (read from L2) and
+  // takes the first maximum; the others leave at once. It resets the
+  // arrival count, so the next launch finds it zero again.
+  __threadfence();  // this CTA's T is visible before its arrival counts
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = arrived + ((size_t)b * gridDim.x + blockIdx.x) * hq + hh;
+    *is_last = atomicAdd(cnt, 1) == g - 1;
+    if (*is_last) *cnt = 0;
+  }
+  __syncthreads();
+  if (!*is_last) return;
+  __threadfence();  // the other CTAs' T, seen after their arrivals
+  constexpr int RPW = RT / WARPS;  // rows of a warp
+  float v0[RPW], v1[RPW];
+  for (int j = 0; j < g; ++j) {  // loads of one head for all rows, then the sums
 #pragma unroll
-  for (int i = 0; i < SLICE; ++i) {
-    const int code = i * LANES + lane;  // increasing in i: strict > keeps the first
-    const float s = acc[i] / cnt + vq_bias[hh * QC + code];
-    if (best_idx < 0 || s > best) {
-      best = s;
-      best_idx = code;
+    for (int k = 0; k < RPW; ++k) {
+      const int row = min(row0 + warp * RPW + k, n - 1);
+      const float* tr_j = t_out + (((size_t)b * n + row) * H + hh * g + j) * QC;
+      const float a0 = __ldcg(tr_j + lane), a1 = __ldcg(tr_j + lane + 32);
+      v0[k] = j == 0 ? a0 : v0[k] + a0;
+      v1[k] = j == 0 ? a1 : v1[k] + a1;
     }
   }
+  const float bias0 = vq_bias[hh * QC + lane], bias1 = vq_bias[hh * QC + lane + 32];
 #pragma unroll
-  for (int off = 1; off < LANES; off <<= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, best_idx, off);
-    if (takes_first_max(ob, oi, best, best_idx)) {
-      best = ob;
-      best_idx = oi;
+  for (int k = 0; k < RPW; ++k) {
+    const int row = row0 + warp * RPW + k;
+    if (row >= n) break;  // warp-uniform
+    const float cnt = counts[(size_t)b * n + row];
+    const float s0 = v0[k] / cnt + bias0;
+    const float s1 = v1[k] / cnt + bias1;
+    float best = s0;
+    int best_idx = lane;
+    if (s1 > best) {  // strict: the lower code keeps a tie
+      best = s1;
+      best_idx = lane + 32;
     }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, best_idx, off);
+      if (takes_first_max(ob, oi, best, best_idx)) {
+        best = ob;
+        best_idx = oi;
+      }
+    }
+    if (lane == 0) codes[((size_t)b * n + row) * hq + hh] = best_idx;
   }
-  if (live && lane == 0) codes[((size_t)b * n + row) * hq + hh] = best_idx;
 }
 
 __global__ void delta_gate_kernel(const float* __restrict__ x_new,  // [r, d]
@@ -226,12 +462,15 @@ extern "C" int fused_step_launch(const float* q, const float* k_new,
                                  const float* vc_old, const float* mask,
                                  const float* t_base, const float* counts,
                                  const float* vq_bias, float* t_out, int* codes,
-                                 int B, int n, int H, int C, int g, float scale,
-                                 cudaStream_t stream) {
-  const dim3 grid((n + ROWS - 1) / ROWS, H / g, B);
-  fused_step_kernel<<<grid, THREADS, 0, stream>>>(
+                                 int* arrived, int B, int n, int H, int C, int g,
+                                 float scale, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + RT - 1) / RT, H, B);
+  fused_step_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
       q, k_new, k_old, vc_new, vc_old, mask, t_base, counts, vq_bias, t_out,
-      codes, n, H, C, g, scale);
+      codes, arrived, n, H, C, g, scale);
   return (int)cudaGetLastError();
 }
 

@@ -20,6 +20,21 @@ LAUNCHES = {"fused_step": 0, "delta_gate": 0}
 
 _DH = 64  # the head dim and codebook size the kernel is instantiated for
 _Q = 64
+_ROWS = 64  # rows of a fused_step CTA (csrc/fused_step.cu RT)
+
+# Per device: one arrival count per (document, row tile, vq head), zero
+# between launches (the kernel's last CTA of each group resets its count).
+# The port launches on one stream a device, so two launches never run at
+# once on the same counts.
+_ARRIVED: dict = {}
+
+
+def _arrived(dev, size: int) -> torch.Tensor:
+    buf = _ARRIVED.get(dev)
+    if buf is None or buf.numel() < size:
+        buf = torch.zeros(max(size, 4096), dtype=torch.int32, device=dev)
+        _ARRIVED[dev] = buf
+    return buf
 
 
 def reset_launches() -> None:
@@ -57,17 +72,22 @@ def fused_patch_assign_batched(q, k_new, k_old, vc_new, vc_old, mask, T_base,
     check("T_base", T_base, (B, n, H, Q), dev)
     check("counts", counts, (B, n), dev)
     check("vq_bias", vq_bias, (H // g, Q), dev)
+    for name, t in (("q", q), ("k_new", k_new), ("k_old", k_old), ("vc_new", vc_new),
+                    ("vc_old", vc_old), ("T_base", T_base)):
+        if t.data_ptr() % 16:  # the kernel moves these rows in 16-byte chunks
+            raise ValueError(f"{name} must be 16-byte aligned")
     T_all = torch.empty_like(T_base)
     codes = torch.empty((B, n, H // g), dtype=torch.int32, device=dev)
     if B == 0 or n == 0:
         return T_all, codes
-    fn = bind("fused_step", "fused_step_launch", [PTR] * 11 + [INT] * 5 + [FLOAT, PTR])
+    fn = bind("fused_step", "fused_step_launch", [PTR] * 12 + [INT] * 5 + [FLOAT, PTR])
+    arrived = _arrived(dev, B * -(-n // _ROWS) * (H // g))
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k_new.data_ptr(), k_old.data_ptr(),
                  vc_new.data_ptr(), vc_old.data_ptr(), mask.data_ptr(),
                  T_base.data_ptr(), counts.data_ptr(), vq_bias.data_ptr(),
-                 T_all.data_ptr(), codes.data_ptr(), B, n, H, C, g,
-                 float(dh ** -0.5), stream_of(dev))
+                 T_all.data_ptr(), codes.data_ptr(), arrived.data_ptr(), B, n, H,
+                 C, g, float(dh ** -0.5), stream_of(dev))
     raise_on_error("fused_step", err)
     LAUNCHES["fused_step"] += 1
     return T_all, codes

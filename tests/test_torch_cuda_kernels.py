@@ -39,13 +39,57 @@ def _inputs(dev, B, n, H, C, hq, seed=0, dh=64, Q=64):
             counts, randn(hq, Q)]
 
 
-@pytest.mark.parametrize("B,n,H,C,hq", [(4, 1024, 12, 72, 2),  # full width, deep layer
-                                        (3, 37, 4, 5, 2),      # smoke heads, odd n and C
-                                        (1, 1, 12, 33, 1),     # one row, g = 12
-                                        (2, 100, 6, 64, 3)])   # C = 2 column tiles
-def test_fused_step_kernel_matches_plain(dev, B, n, H, C, hq):
+def _engine_mask(dev, B, n, C, seed):
+    """The patch mask as the engine's fused step builds it: column c is the
+    sorted slot ``col[c]``, live where its position id is at most the row's
+    (causal order), times row validity, times not dirty (the first C - 8
+    columns are changed rows). Sorted positions zero whole tiles above the
+    diagonal. The last document is a filler: all zero."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mask = torch.zeros((B, n, C), device=dev)
+    for b in range(B - 1):
+        length = min((256, 300, 700, 1000)[b % 4], n)
+        pos = torch.randperm(4 * n, generator=gen, device=dev)[:n].sort().values
+        col = torch.randperm(length, generator=gen, device=dev)[:C].sort().values
+        row_valid = (torch.arange(n, device=dev) < length).float()
+        dirty = torch.zeros(n, device=dev)
+        dirty[col[:C - 8]] = 1.0
+        mask[b] = ((pos[col][None, :] <= pos[:, None]).float()
+                   * (row_valid * (1.0 - dirty))[:, None])
+    return mask
+
+
+TIE = (5, 40)  # two codes owned by different threads of a row
+
+
+@pytest.mark.parametrize("B,n,H,C,hq,case", [
+    (4, 1024, 12, 8, 2, "random"),    # full width, layer 0 (C = 8)
+    (4, 1024, 12, 72, 2, "random"),   # full width, R = 64
+    (4, 1024, 12, 136, 2, "random"),  # full width, R = 128
+    (4, 1024, 12, 264, 2, "random"),  # full width, R = 256 (after overflows)
+    (1, 1024, 12, 72, 2, "random"),   # the single-document grid
+    (4, 1024, 12, 72, 2, "causal"),   # the engine's mask: whole dead tiles
+    (2, 1000, 12, 72, 2, "random"),   # n not a multiple of the row tile
+    (3, 37, 4, 5, 2, "random"),       # smoke heads, odd n and C
+    (1, 1, 12, 33, 1, "random"),      # one row, g = 12, C = 33
+    (2, 100, 6, 64, 3, "random"),     # C = 2 column tiles, g = 2
+    (2, 200, 12, 1, 12, "random"),    # C = 1, g = 1
+    (2, 130, 12, 31, 1, "random"),    # C = 31, g = 12
+    (1, 1024, 12, 72, 1, "random"),   # g = 12 at full n
+    (2, 300, 12, 72, 2, "tie"),       # an exact tie across threads
+])
+def test_fused_step_kernel_matches_plain(dev, B, n, H, C, hq, case):
     args = _inputs(dev, B, n, H, C, hq, seed=n + C)
+    if case == "causal":
+        args[5] = _engine_mask(dev, B, n, C, seed=n + C)
     args[5][0, :: 3] = 0.0  # fully masked rows
+    args[6][:, ::5, :, :3] = -0.0  # a dead row keeps the sign of -0.0
+    if case == "tie":
+        lo, hi = TIE
+        for a in (args[3], args[4], args[6]):  # vc_new, vc_old, T_base
+            a[..., hi] = a[..., lo]
+        args[6][..., lo] = args[6][..., hi] = 100.0  # the row maximum,
+        args[8][:, lo] = args[8][:, hi] = 50.0  # whatever the row's count
     before = LAUNCHES["fused_step"]
     T_k, codes_k = fused_patch_assign_batched(*args, heads_per_vq=H // hq)
     torch.cuda.synchronize()
@@ -53,12 +97,16 @@ def test_fused_step_kernel_matches_plain(dev, B, n, H, C, hq):
     T_p, codes_p = fused_patch_assign_ref(*args)
     torch.testing.assert_close(T_k, T_p, atol=1e-4, rtol=1e-5)
     dead = args[5].sum(-1) == 0
-    assert torch.equal(T_k[dead], args[6][dead])  # bitwise T_base
+    assert bool(dead.any())
+    # bitwise T_base (torch.equal does not tell -0.0 from +0.0)
+    assert torch.equal(T_k[dead].view(torch.int32), args[6][dead].view(torch.int32))
     g = H // hq
     s = T_p.reshape(B, n, hq, g, -1).sum(3) / args[7][..., None, None] + args[8]
     top2 = s.topk(2, dim=-1).values
     near = (top2[..., 0] - top2[..., 1]) <= 1e-5
     assert not ((codes_k != codes_p) & ~near).any()
+    if case == "tie":
+        assert (codes_k == TIE[0]).all()  # the first maximum
 
 
 @pytest.mark.parametrize("r,d", [(64, 768), (1024, 768), (3, 5)])
@@ -85,6 +133,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fused_patch_assign_batched(q_strided, *args[1:], heads_per_vq=2)
     with pytest.raises(ValueError, match="float32"):
         fused_patch_assign_batched(args[0].double(), *args[1:], heads_per_vq=2)
+    q_off = torch.empty(args[0].numel() + 1, device=dev)[1:].view(args[0].shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_patch_assign_batched(q_off.copy_(args[0]), *args[1:], heads_per_vq=2)
     with pytest.raises(ValueError, match="float32"):
         delta_gate(args[0][0, 0].double(), args[0][0, 0].double(), 1.0)
 

@@ -94,7 +94,7 @@ def test_core_vq_matches_reference_module():
     np.testing.assert_allclose(xq_p.numpy(), np.asarray(xq_j), atol=1e-6, rtol=0)
 
 
-def test_cpu_calls_do_not_count_and_bias_is_shared():
+def test_cpu_calls_do_not_count_and_bias_matches_numpy():
     x, cb = _inputs(1, (4,), 2, 8, 4)
     before = dict(LAUNCHES)
     vq_assign(torch.tensor(x), torch.tensor(cb))
