@@ -23,7 +23,8 @@ and exits non-zero):
                 VQ kernel's own device time by name beside the wrapper's),
                 ``gated_attention`` (BH=48, dh=64, n in {1024, 1000, 37},
                 within 1e-5) and ``incr_patch`` (B=4, n=1024, H=12, C in
-                {8, 72, 264}, within 1e-4, all-masked rows exactly 0).
+                {8, 72, 264}, and 1x1024x1032, the most served step; within
+                1e-4, all-masked rows exactly 0).
 4. serve      — full-width VQ-OPT-125M (random weights from seed 0) behind
                 ``BatchServer(device="cuda")``: 4 documents (256, 300, 700
                 and 1000 tokens) and a seeded mixed edit stream that forces
@@ -39,7 +40,9 @@ and exits non-zero):
 7. patch      — the serve stream through ``use_fused_kernel=False,
                 use_patch_kernel=True``: tokens and counters equal the
                 fused server's, codes equal except at near-ties, logits
-                within 1e-3, 12 ``incr_patch`` launches per edit dispatch.
+                within 1e-3, 12 ``incr_patch`` launches per edit dispatch;
+                then the profile phase's round of edits under torch.profiler
+                (``incr_patch`` device time and launches).
 8. profile    — one more round of edits on the served fleet under
                 torch.profiler: device busy time against wall time, and the
                 kernels that take it.
@@ -71,9 +74,11 @@ and outside a checkout of the repo.
 
 ``--sweep`` runs phases 1 and 2, then times ``vq_assign`` at 1 to 4,096
 tokens under the wrapper's schedule rule and with each schedule forced (the
-numbers behind the rule), and ``fused_step`` against its plain version at
-B in {1, 4}, n=1024, C in {8, 72, 136, 264}, at 1x1024x1032 and at
-n=4096, and prints no ok line.
+numbers behind the rule), and ``fused_step`` and ``incr_patch``, each
+against its plain version, at every (B, n, C) the serve phase's edit steps
+run at (B in {1, 2, 4}, n=1024, C in {8, 72, 136, 264}; 1x1024x520 and
+1x1024x1032) and at 1x4096x72, ``incr_patch`` also with each of its two
+layouts forced, one line a shape, and prints no ok line.
 """
 from __future__ import annotations
 
@@ -344,16 +349,32 @@ def sweep_vq_assign(mod, gen) -> None:
         emit("sweep", **row)
 
 
-SWEEP_FUSED = (tuple((B, 1024, C) for B in (1, 4) for C in (8, 72, 136, 264))
-               + ((1, 1024, 1032), (1, 4096, 72)))  # 1x1024x1032: the most served step
+# every (B, n, C) the serve phase's edit steps run at (PERF.md §5), then
+# n=4096; 1x1024x1032 is the most served step
+SWEEP_PATCH = (tuple((B, 1024, C) for B in (1, 2, 4) for C in (8, 72, 136, 264))
+               + ((1, 1024, 520), (1, 1024, 1032), (1, 4096, 72)))
 
 
-def sweep_fused_step(ops, ref, gen) -> None:
-    """``--sweep``: ``fused_step`` (H=12, hq=2, random mask) at each (B, n,
-    C) of SWEEP_FUSED, kernel against plain, each call first held against
-    the plain version as in the kernels phase; one JSON line a shape."""
-    for B, n, C in SWEEP_FUSED:
-        emit("sweep", kernel="fused_step", **check_fused_step(ops, ref, gen, C, B=B, n=n))
+def sweep_patch(ops, ref, ipk, gen) -> None:
+    """``--sweep``: ``fused_step`` (H=12, hq=2) and ``incr_patch`` (H=12) at
+    each (B, n, C) of SWEEP_PATCH with the same random mask law, each
+    against its plain version, each call first held against the plain
+    version as in the kernels phase; ``incr_patch`` under the wrapper's
+    layout rule and with each layout forced (the numbers behind
+    ``ops.split``). One JSON line a shape."""
+    rule = getattr(ipk.ops, "split", None)  # None in a tree with one layout
+    for B, n, C in SWEEP_PATCH:
+        fused = check_fused_step(ops, ref, gen, C, B=B, n=n)
+        patch = check_incr_patch(ipk, gen, C, B=B, n=n)
+        layouts = {}
+        for name, two in (("one_cta", False), ("cta_per_product", True)):
+            with mock.patch.object(ipk.ops, "split", lambda *_a, _two=two: _two,
+                                   create=True):
+                layouts[name] = check_incr_patch(ipk, gen, C, B=B, n=n)["kernel_ms"]
+        emit("sweep", B=B, n=n, C=C, fused_step=fused, incr_patch=patch,
+             incr_patch_split=rule(B, n, 12, C) if rule else None,
+             incr_patch_layout_ms=layouts,
+             incr_patch_over_fused_step=patch["ms"] / fused["ms"])
 
 
 def check_gated_attention(mod, gen, n: int, BH=48, dh=64):
@@ -379,8 +400,8 @@ def check_gated_attention(mod, gen, n: int, BH=48, dh=64):
 
 def check_incr_patch(mod, gen, C: int, B=4, n=1024, H=12, dh=64, Q=64):
     """``incr_patch_batched`` against the plain version: within 1e-4
-    (rtol 1e-5), fully masked rows and an all-masked filler document
-    exactly 0."""
+    (rtol 1e-5), fully masked rows and (for B > 1) an all-masked filler
+    document exactly 0. The mask is ``check_fused_step``'s random one."""
     dev = torch.device("cuda")
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     args = (randn(B, n, H, dh), randn(B, H, C, dh), randn(B, H, C, dh),
@@ -388,25 +409,27 @@ def check_incr_patch(mod, gen, C: int, B=4, n=1024, H=12, dh=64, Q=64):
             (torch.rand((B, n, C), generator=gen, device=dev) < 0.6).float())
     mask = args[5]
     mask[:, ::7] = 0.0  # fully masked rows (free slots)
-    mask[B - 1] = 0.0  # a dispatch's filler document
+    if B > 1:
+        mask[B - 1] = 0.0  # a dispatch's filler document
     out = mod.incr_patch_batched(*args)
     want = mod.incr_patch_ref(*args)
     torch.cuda.synchronize()
     err = float((out - want).abs().max())
     if not torch.allclose(out, want, atol=1e-4, rtol=1e-5):
-        raise AssertionError(f"incr_patch C={C}: differs by {err} (atol 1e-4, rtol 1e-5)")
+        raise AssertionError(f"incr_patch {B}x{n}x{C}: differs by {err} "
+                             "(atol 1e-4, rtol 1e-5)")
     dead = mask.sum(-1) == 0
     if not (out[dead] == 0).all():
-        raise AssertionError(f"incr_patch C={C}: fully masked rows are not 0")
-    kernel = timings(lambda: mod.incr_patch_batched(*args))
+        raise AssertionError(f"incr_patch {B}x{n}x{C}: fully masked rows are not 0")
+    kernel = timings(lambda: mod.incr_patch_batched(*args), kernel="incr_patch")
     plain = timings(lambda: mod.incr_patch_ref(*args))
     live = float(mask.sum())
     nbytes = 4 * (sum(a.numel() for a in args) + out.numel())
     bound_ms, bound_by = bound(nbytes, live * H * (4 * dh + 4 * Q))
-    return dict(C=C, max_abs_err=err, masked_rows=int(dead.sum()), ms=kernel["ms"],
-                call_ms=kernel["call_ms"], plain_ms=plain["ms"],
-                plain_call_ms=plain["call_ms"], timing=kernel["timing"],
-                bound_ms=bound_ms, bound_by=bound_by,
+    return dict(B=B, n=n, C=C, max_abs_err=err, masked_rows=int(dead.sum()),
+                ms=kernel["ms"], kernel_ms=kernel["kernel_ms"], call_ms=kernel["call_ms"],
+                plain_ms=plain["ms"], plain_call_ms=plain["call_ms"],
+                timing=kernel["timing"], bound_ms=bound_ms, bound_by=bound_by,
                 live_mask_fraction=live / mask.numel())
 
 
@@ -469,8 +492,9 @@ def serve(params, cfg, docs, stream, **kw):
 
 def profile_round(srv, batch) -> dict:
     """One more round of edits on a served fleet under torch.profiler:
-    the device's busy time against the round's wall time, and the kernels
-    that take it, by device time."""
+    the device's busy time against the round's wall time, the kernels
+    that take it, by device time, and the summed device time and launches
+    of each hand-written edit kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -486,9 +510,13 @@ def profile_round(srv, batch) -> dict:
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
+    edit_kernels = {name: dict(ms=sum(e.self_device_time_total for e in mine) / 1e3,
+                               count=sum(e.count for e in mine))
+                    for name in ("fused_step", "incr_patch")
+                    for mine in [[e for e in dev if name in e.key]]}
     return dict(edits=len(batch), edit_dispatches=srv.stats.batch_steps - steps0,
                 wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
-                device_idle_share=1.0 - busy_ms / wall_ms,
+                device_idle_share=1.0 - busy_ms / wall_ms, edit_kernels=edit_kernels,
                 top_kernels=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
                                   count=e.count) for e in top])
 
@@ -745,9 +773,14 @@ def patch_phase(params, cfg, docs, stream, fused) -> dict:
             logit_diff[did] = float(np.abs(patch.logits(did) - fused.logits(did)).max())
             if logit_diff[did] > 1e-3:
                 raise AssertionError(f"patch: {did} logits differ by {logit_diff[did]}")
+    dispatches = st.batch_steps
+    # one more round under torch.profiler: the edits the profile phase
+    # sends the fused server, so the two rounds' kernel times compare
+    prof = profile_round(patch, make_stream(
+        cfg.vocab, seed=1, rounds=1, lens={d: patch.docs[d].n for d in docs})[0])
     return dict(launches={"incr_patch": launches["incr_patch"]},
-                edit_dispatches=st.batch_steps, near_tie_flips=flips,
-                max_logits_diff=logit_diff)
+                edit_dispatches=dispatches, near_tie_flips=flips,
+                max_logits_diff=logit_diff, profile=prof)
 
 
 def main() -> int:
@@ -790,7 +823,7 @@ def main() -> int:
          out_dir=str(_build.build_dir().relative_to(ROOT)), ptxas=ptxas)
     if args.sweep:
         sweep_vq_assign(vqk, torch.Generator(device="cuda").manual_seed(0))
-        sweep_fused_step(ops, ref, torch.Generator(device="cuda").manual_seed(0))
+        sweep_patch(ops, ref, ipk, torch.Generator(device="cuda").manual_seed(0))
         print(smi, flush=True)
         return 0
 
@@ -804,6 +837,7 @@ def main() -> int:
     vqs = [check_vq_assign(vqk, gen, B, N) for B, N in ((4, 1024), (1, 1024), (1, 32), (1, 1))]
     gas = [check_gated_attention(gak, gen, n) for n in (1024, 1000, 37)]
     ips = [check_incr_patch(ipk, gen, C) for C in (8, 72, 264)]
+    ips.append(check_incr_patch(ipk, gen, 1032, B=1))  # the most served step
     emit("kernels", seconds=time.perf_counter() - t0, fused_step=fused,
          delta_gate=gates + [gate_timed], vq_assign=vqs, gated_attention=gas,
          incr_patch=ips)
@@ -930,7 +964,7 @@ def main() -> int:
     ]
     vq1024 = next(v for v in vqs if v["B"] == 1 and v["N"] == 1024)  # a prefill chunk
     ga1024 = next(g for g in gas if g["n"] == 1024)
-    ip72 = next(i for i in ips if i["C"] == 72)
+    ip72 = next(i for i in ips if i["B"] == 4 and i["C"] == 72)
     for name, src, tpu, launches, errs, row in (
             ("vq_assign", "vq_assign.cu", "vq_assign/vq_assign.py:61",
              sug["vq_assign_launches"], vqs, vq1024),

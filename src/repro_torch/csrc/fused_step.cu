@@ -60,6 +60,8 @@
 //   held every CTA until the slowest of its cluster; it was slower.)
 // * Everything is full FP32 on the CUDA cores: TF32 tensor cores flip VQ
 //   codes (a split-precision version is later work).
+// * The tile helpers (cp.async, float4 loads and stores, the S product) are
+//   in patch_tile.cuh, shared with incr_patch.cu.
 //
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W; device ms by
 // kernel name at B=4, n=1024, 38% live): 0.0331 / 0.0798 / 0.2117 at C = 8
@@ -83,77 +85,17 @@
 #include <stddef.h>
 
 #include "common.cuh"
+#include "patch_tile.cuh"
 
 namespace {
 
+using namespace repro_torch::patch_tile;
 using repro_torch::gelu_tanh;
 using repro_torch::takes_first_max;
 
-constexpr int DH = 64;                   // head dim (every served config)
-constexpr int QC = 64;                   // codebook size
-constexpr int RT = 64;                   // rows per CTA
-constexpr int CT = 32;                   // columns per tile
-constexpr int THREADS = 4 * RT;
 constexpr int WARPS = THREADS / 32;
-constexpr int PAD = DH + 4;              // padded stride of a staged q row, k / vc column
-constexpr int WS = RT + 4;               // padded stride of W^T [column][row]
 constexpr int GATE_WARPS = 8;            // rows per delta_gate block
-
-static_assert(DH == QC, "one staging pattern serves q, k, vc and T_base");
-
-// dynamic shared memory, in floats
-constexpr int Q_FLOATS = RT * PAD;                // q tile [RT][PAD]
-constexpr int STAGE_FLOATS = 4 * CT * PAD;        // k_new, k_old, vc_new, vc_old
-constexpr int RING_FLOATS = 2 * STAGE_FLOATS;     // two stages
-constexpr int W_FLOATS = 2 * CT * WS;             // W^T new and old [CT][WS]
 constexpr int SMEM_BYTES = 4 * (Q_FLOATS + RING_FLOATS + W_FLOATS) + 4 * (RT + 1);
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: zero-fill, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-// S[i][j] = q row i . k column (8 j) over DH for the first NJ column
-// groups: q_r points at the thread's first q row, k_c at its first column.
-template <int NJ>
-__device__ __forceinline__ void s_product(const float* q_r, const float* k_c,
-                                          float (&acc)[4][4]) {
-#pragma unroll 4
-  for (int d = 0; d < DH; d += 4) {
-    float4 qv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qv[i] = ld4(q_r + i * PAD + d);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float4 kv = ld4(k_c + 8 * j * PAD + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float a = acc[i][j];
-        a = fmaf(qv[i].x, kv.x, a);
-        a = fmaf(qv[i].y, kv.y, a);
-        a = fmaf(qv[i].z, kv.z, a);
-        a = fmaf(qv[i].w, kv.w, a);
-        acc[i][j] = a;
-      }
-    }
-  }
-}
 
 __global__ void __launch_bounds__(THREADS, 2)
 fused_step_kernel(const float* __restrict__ q,       // [B, n, H, DH]

@@ -53,6 +53,36 @@ def stream_of(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def check_aligned(**tensors) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (kernels that
+    move rows in 16-byte chunks)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+# Arrival counts of kernels whose last CTA of a group finishes the group's
+# work: zero between launches (that CTA resets its count). One buffer per
+# (device, stream), so launches on two streams never share a count. A buffer
+# a launch has used is never freed, so a captured CUDA graph cannot keep a
+# pointer the allocator has handed out again.
+_COUNTS: dict = {}
+_RETIRED: list = []
+
+
+def arrival_counts(device, size: int) -> torch.Tensor:
+    """At least ``size`` zeroed int32 counts for a launch on the current
+    stream of ``device``."""
+    key = (device, stream_of(device))
+    buf = _COUNTS.get(key)
+    if buf is None or buf.numel() < size:
+        if buf is not None:
+            _RETIRED.append(buf)
+        buf = torch.zeros(max(size, 4096), dtype=torch.int32, device=device)
+        _COUNTS[key] = buf
+    return buf
+
+
 def raise_on_error(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")

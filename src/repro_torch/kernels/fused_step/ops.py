@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._launch import (
-    FLOAT, INT, PTR, bind, check, raise_on_error, require_cuda, stream_of,
+    FLOAT, INT, PTR, arrival_counts, bind, check, check_aligned, raise_on_error,
+    require_cuda, stream_of,
 )
 from repro_torch.kernels.fused_step.ref import delta_gate_ref, fused_patch_assign_ref
 
@@ -21,21 +22,6 @@ LAUNCHES = {"fused_step": 0, "delta_gate": 0}
 _DH = 64  # the head dim and codebook size the kernel is instantiated for
 _Q = 64
 _ROWS = 64  # rows of a fused_step CTA (csrc/fused_step.cu RT)
-
-# Per device: one arrival count per (document, row tile, vq head), zero
-# between launches (the kernel's last CTA of each group resets its count).
-# The port launches on one stream a device, so two launches never run at
-# once on the same counts.
-_ARRIVED: dict = {}
-
-
-def _arrived(dev, size: int) -> torch.Tensor:
-    buf = _ARRIVED.get(dev)
-    if buf is None or buf.numel() < size:
-        buf = torch.zeros(max(size, 4096), dtype=torch.int32, device=dev)
-        _ARRIVED[dev] = buf
-    return buf
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -72,16 +58,15 @@ def fused_patch_assign_batched(q, k_new, k_old, vc_new, vc_old, mask, T_base,
     check("T_base", T_base, (B, n, H, Q), dev)
     check("counts", counts, (B, n), dev)
     check("vq_bias", vq_bias, (H // g, Q), dev)
-    for name, t in (("q", q), ("k_new", k_new), ("k_old", k_old), ("vc_new", vc_new),
-                    ("vc_old", vc_old), ("T_base", T_base)):
-        if t.data_ptr() % 16:  # the kernel moves these rows in 16-byte chunks
-            raise ValueError(f"{name} must be 16-byte aligned")
+    check_aligned(q=q, k_new=k_new, k_old=k_old, vc_new=vc_new, vc_old=vc_old,
+                  T_base=T_base)
     T_all = torch.empty_like(T_base)
     codes = torch.empty((B, n, H // g), dtype=torch.int32, device=dev)
     if B == 0 or n == 0:
         return T_all, codes
     fn = bind("fused_step", "fused_step_launch", [PTR] * 12 + [INT] * 5 + [FLOAT, PTR])
-    arrived = _arrived(dev, B * -(-n // _ROWS) * (H // g))
+    # one count per (document, row tile, vq head)
+    arrived = arrival_counts(dev, B * -(-n // _ROWS) * (H // g))
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k_new.data_ptr(), k_old.data_ptr(),
                  vc_new.data_ptr(), vc_old.data_ptr(), mask.data_ptr(),

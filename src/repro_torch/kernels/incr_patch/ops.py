@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._launch import (
-    FLOAT, INT, PTR, bind, check, raise_on_error, require_cuda, stream_of,
+    FLOAT, INT, PTR, arrival_counts, bind, check, check_aligned, raise_on_error,
+    require_cuda, stream_of,
 )
 from repro_torch.kernels.incr_patch.ref import incr_patch_ref
 
@@ -21,6 +22,17 @@ LAUNCHES = {"incr_patch": 0}
 
 _DH = 64  # the head dim and codebook size the kernel is instantiated for
 _Q = 64
+_ROWS = 64  # rows of a CTA (csrc/patch_tile.cuh RT)
+
+
+def split(B: int, R: int, H: int, C: int) -> bool:
+    """Whether each (row tile, head, document) takes two CTAs of the kernel,
+    one a product (new or old), instead of one CTA for both. The result is
+    the same to the bit either way. Two are faster from 5 column tiles of 32
+    on, and from 3 tiles while the grid holds at most 384 (row tile, head,
+    document) triples; with 1 or 2 tiles they are slower (H100, PERF.md)."""
+    tiles = -(-C // 32)
+    return tiles >= 5 or (tiles >= 3 and B * -(-R // _ROWS) * H <= 384)
 
 
 def reset_launches() -> None:
@@ -43,14 +55,20 @@ def _launch(q, k_new, k_old, vc_new, vc_old, mask):
     for name, t in (("vc_new", vc_new), ("vc_old", vc_old)):
         check(name, t, (B, H, C, Q), dev)
     check("mask", mask, (B, R, C), dev)
+    check_aligned(q=q, k_new=k_new, k_old=k_old, vc_new=vc_new, vc_old=vc_old)
     out = torch.empty((B, R, H, Q), dtype=torch.float32, device=dev)
     if B == 0 or R == 0 or H == 0:
         return out
-    fn = bind("incr_patch", "incr_patch_launch", [PTR] * 7 + [INT] * 4 + [FLOAT, PTR])
+    fn = bind("incr_patch", "incr_patch_launch", [PTR] * 9 + [INT] * 5 + [FLOAT, PTR])
+    two = split(B, R, H, C)
+    part = torch.empty_like(out) if two else out  # dT_old of a split pair
+    # one count per (document, row tile, head)
+    arrived = arrival_counts(dev, B * -(-R // _ROWS) * H)
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k_new.data_ptr(), k_old.data_ptr(), vc_new.data_ptr(),
-                 vc_old.data_ptr(), mask.data_ptr(), out.data_ptr(), B, R, H, C,
-                 float(dh ** -0.5), stream_of(dev))
+                 vc_old.data_ptr(), mask.data_ptr(), out.data_ptr(), part.data_ptr(),
+                 arrived.data_ptr(), B, R, H, C, int(two), float(dh ** -0.5),
+                 stream_of(dev))
     raise_on_error("incr_patch", err)
     LAUNCHES["incr_patch"] += 1
     return out

@@ -79,6 +79,21 @@ def test_all_masked_rows_and_documents_are_exactly_zero():
     assert (out[0].abs().sum((-1, -2)) > 0).sum() > 0  # the others do patch
 
 
+@pytest.mark.parametrize("B,Rn,C_,two", [
+    (1, 1024, 8, False), (2, 1024, 8, False), (4, 1024, 8, False),  # one column tile
+    (1, 1024, 72, True), (2, 1024, 72, True),    # 3 tiles, a small grid
+    (4, 1024, 72, False), (1, 4096, 72, False),  # 3 tiles, 768 (tile, head, doc)
+    (4, 1024, 136, True), (1, 1024, 1032, True),  # 5 tiles and more
+])
+def test_split_rule_follows_the_measured_crossovers(B, Rn, C_, two):
+    """The kernel's choice between one CTA a (row tile, head, document) and
+    one a product, at the served shapes (H=12): a function of the shape
+    alone, fixed from chip_smoke.py --sweep on an H100."""
+    from repro_torch.kernels.incr_patch import ops
+
+    assert ops.split(B, Rn, 12, C_) is two
+
+
 def test_plain_version_is_the_engine_math():
     """``incr_patch_ref`` on the kernel layout equals the inline einsums of
     ``JitIncrementalEngine`` ([B, C, H, dh] columns), row validity folded."""
