@@ -22,7 +22,8 @@ and exits non-zero):
                 equal away from near-ties, x_q bitwise the codebook row; the
                 VQ kernel's own device time by name beside the wrapper's),
                 ``gated_attention`` (BH=48, dh=64, n in {1024, 1000, 37},
-                within 1e-5) and ``incr_patch`` (B=4, n=1024, H=12, C in
+                within 1e-5; its bound at its route's peak, 3xTF32 on
+                the tensor cores, beside the FP32 cores') and ``incr_patch`` (B=4, n=1024, H=12, C in
                 {8, 72, 264}, and 1x1024x1032, the most served step; within
                 1e-4, all-masked rows exactly 0).
 4. serve      — full-width VQ-OPT-125M (random weights from seed 0) behind
@@ -51,7 +52,10 @@ and exits non-zero):
                 document's last-row logits within 1e-3 of the engine's
                 ``full_forward`` + ``logits_at`` (unless a VQ code flipped
                 at a near-tie), 12 ``gated_attention`` and 12 ``vq_assign``
-                launches per call, ms per call and tokens/s.
+                launches per call, ms per call and tokens/s; then one call
+                under torch.profiler: device busy time, ``gated_attention``'s
+                device time over its launches, the 5 kernels that take the
+                most.
 10. suggest   — the 4 documents subscribed to 8-token suggestions, then
                 the serve stream plus 6 appends to the 1000-token document
                 (its continuation runs out of position ids: a defrag and a
@@ -78,7 +82,10 @@ numbers behind the rule), and ``fused_step`` and ``incr_patch``, each
 against its plain version, at every (B, n, C) the serve phase's edit steps
 run at (B in {1, 2, 4}, n=1024, C in {8, 72, 136, 264}; 1x1024x520 and
 1x1024x1032) and at 1x4096x72, ``incr_patch`` also with each of its two
-layouts forced, one line a shape, and prints no ok line.
+layouts forced, and ``gated_attention`` against its plain version at
+BH=48 x n in {37, 128, 256, 512, 1000, 1024, 2048}, BH=12 x n=1024 and
+BH=48 at (nq, nk) = (1024, 512) and (512, 1024), with both bounds; one
+line a shape, and prints no ok line.
 """
 from __future__ import annotations
 
@@ -97,6 +104,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
+# gated_attention's route: each f32 product as three TF32 tensor-core products
+GA_CORES, GA_PEAK, GA_PRODUCTS = "tensor-core-3xtf32", TF32_FLOPS_PER_S, 3
 DEVICE = "cuda"
 DOC_LENGTHS = {"d256": 256, "d300": 300, "d700": 700, "d1000": 1000}
 
@@ -174,10 +184,12 @@ def timings(fn, kernel: str | None = None) -> dict:
     return out
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          peak: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     """Least time (ms) the card could take: the larger of bytes over the
-    memory rate and operations over the FP32 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    memory rate and operations over the peak of the units that run them
+    (the FP32 CUDA cores unless the kernel's route names others)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -377,25 +389,53 @@ def sweep_patch(ops, ref, ipk, gen) -> None:
              incr_patch_over_fused_step=patch["ms"] / fused["ms"])
 
 
-def check_gated_attention(mod, gen, n: int, BH=48, dh=64):
-    """``gated_attention_bh`` against the plain version, within 1e-5."""
+def attention_work(BH: int, nq: int, nk: int, dh: int = 64) -> tuple[int, int]:
+    """The compulsory bytes (q, k and v read once, O written once) and FP32
+    operations (2 a multiply-add, q k^T and W v; GELUs not counted) of
+    causal attention, where row i attends min(i + 1, nk) keys."""
+    pairs = sum(min(i + 1, nk) for i in range(nq))  # (query, key) pairs a bh
+    return 4 * 2 * BH * (nq + nk) * dh, BH * pairs * 4 * dh
+
+
+def check_gated_attention(mod, gen, nq: int, nk: int | None = None, BH=48, dh=64):
+    """``gated_attention_bh`` against the plain version, within 1e-5; the
+    bound of the kernel's route (``bound_ms``) and of the FP32 CUDA cores."""
+    nk = nq if nk is None else nk
     dev = torch.device("cuda")
-    q = torch.randn((BH, n, dh), generator=gen, device=dev) * 0.5
-    k = torch.randn((BH, n, dh), generator=gen, device=dev) * 0.5
-    v = torch.randn((BH, n, dh), generator=gen, device=dev)
+    q = torch.randn((BH, nq, dh), generator=gen, device=dev) * 0.5
+    k = torch.randn((BH, nk, dh), generator=gen, device=dev) * 0.5
+    v = torch.randn((BH, nk, dh), generator=gen, device=dev)
     out = mod.gated_attention_bh(q, k, v)
     want = mod.gated_attention_ref(q, k, v)
     torch.cuda.synchronize()
     err = float((out - want).abs().max())
     if err > 1e-5:
-        raise AssertionError(f"gated_attention n={n}: differs by {err} (atol 1e-5)")
-    kernel = timings(lambda: mod.gated_attention_bh(q, k, v))
+        raise AssertionError(f"gated_attention {BH}x{nq}x{nk}: differs by {err} (atol 1e-5)")
+    kernel = timings(lambda: mod.gated_attention_bh(q, k, v), kernel="gated_attention")
     plain = timings(lambda: mod.gated_attention_ref(q, k, v))
-    pairs = n * (n + 1) // 2  # causal (query, key) pairs per batch-head
-    bound_ms, bound_by = bound(4 * 4 * BH * n * dh, BH * pairs * 4 * dh)
-    return dict(BH=BH, n=n, max_abs_err=err, ms=kernel["ms"], call_ms=kernel["call_ms"],
-                plain_ms=plain["ms"], plain_call_ms=plain["call_ms"],
-                timing=kernel["timing"], bound_ms=bound_ms, bound_by=bound_by)
+    nbytes, flops = attention_work(BH, nq, nk, dh)
+    bound_ms, bound_by = bound(nbytes, GA_PRODUCTS * flops, GA_PEAK)
+    return dict(BH=BH, nq=nq, nk=nk, max_abs_err=err, ms=kernel["ms"],
+                kernel_ms=kernel["kernel_ms"], kernels=kernel["kernels"],
+                call_ms=kernel["call_ms"], plain_ms=plain["ms"],
+                plain_call_ms=plain["call_ms"], timing=kernel["timing"],
+                cores=GA_CORES, bound_ms=bound_ms, bound_by=bound_by,
+                bound_fp32_ms=bound(nbytes, flops)[0],
+                bound_tc_3xtf32_ms=bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)[0])
+
+
+# BH=48 is the forward's [4, 1024] batch of 12 heads, BH=12 one document;
+# the last two are ragged (nq != nk) both ways
+SWEEP_ATTENTION = (tuple((48, n, n) for n in (37, 128, 256, 512, 1000, 1024, 2048))
+                   + ((12, 1024, 1024), (48, 1024, 512), (48, 512, 1024)))
+
+
+def sweep_gated_attention(mod, gen) -> None:
+    """``--sweep``: ``gated_attention`` at each (BH, nq, nk) of
+    SWEEP_ATTENTION, held against the plain version as in the kernels
+    phase; one JSON line a shape."""
+    for BH, nq, nk in SWEEP_ATTENTION:
+        emit("sweep", kernel="gated_attention", **check_gated_attention(mod, gen, nq, nk, BH=BH))
 
 
 def check_incr_patch(mod, gen, C: int, B=4, n=1024, H=12, dh=64, Q=64):
@@ -490,35 +530,51 @@ def serve(params, cfg, docs, stream, **kw):
     return srv, lat
 
 
+def profiled(fn, names, top: int) -> dict:
+    """``fn()`` once under torch.profiler: its wall time (ends in a sync),
+    the device's busy time and idle share, the summed device time and
+    launches of the kernels whose names hold each of ``names``, and the
+    ``top`` kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    by_name = {name: dict(ms=sum(e.self_device_time_total for e in mine) / 1e3,
+                          count=sum(e.count for e in mine))
+               for name in names for mine in [[e for e in dev if name in e.key]]}
+    ranked = sorted(dev, key=lambda e: -e.self_device_time_total)[:top]
+    return dict(wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=1.0 - busy_ms / wall_ms, kernels=by_name,
+                top_kernels=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
+                                  count=e.count) for e in ranked])
+
+
 def profile_round(srv, batch) -> dict:
     """One more round of edits on a served fleet under torch.profiler:
     the device's busy time against the round's wall time, the kernels
     that take it, by device time, and the summed device time and launches
     of each hand-written edit kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     steps0 = srv.stats.batch_steps
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def round_():
         for did, e in batch:
             srv.submit_edit(did, e)
         srv.flush()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
-    edit_kernels = {name: dict(ms=sum(e.self_device_time_total for e in mine) / 1e3,
-                               count=sum(e.count for e in mine))
-                    for name in ("fused_step", "incr_patch")
-                    for mine in [[e for e in dev if name in e.key]]}
+
+    prof = profiled(round_, ("fused_step", "incr_patch"), top=10)
+    edit_kernels = prof.pop("kernels")
     return dict(edits=len(batch), edit_dispatches=srv.stats.batch_steps - steps0,
-                wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
-                device_idle_share=1.0 - busy_ms / wall_ms, edit_kernels=edit_kernels,
-                top_kernels=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
-                                  count=e.count) for e in top])
+                wall_ms_profiled=prof["wall_ms_profiled"],
+                device_busy_ms=prof["device_busy_ms"],
+                device_idle_share=prof["device_idle_share"], edit_kernels=edit_kernels,
+                top_kernels=prof["top_kernels"])
 
 
 def code_diff(srv_a, srv_b, did: str, vq_bias) -> int:
@@ -652,10 +708,20 @@ def forward_phase(tparams, cfg, docs: dict, eng, width: int = 1024) -> dict:
         diffs[did] = d
     call = lambda: T.forward(tparams, cfg, tt, tp)
     ms = time_ms(call, warmup=2, iters=10)
+    # one call under torch.profiler, retried (up to 3) when the trace drops
+    # kernel records
+    for _ in range(3):
+        prof = profiled(call, ("gated_attention",), top=5)
+        if prof["kernels"]["gated_attention"]["count"] == n_layers(cfg):
+            break
     return dict(batch=list(tt.shape), launches={k: launches[k] for k in
                                                 ("gated_attention", "vq_assign")},
                 max_logits_diff=diffs, code_flips=flips, ms_per_forward=ms,
-                tokens_per_s=tt.numel() / (ms / 1e3))
+                tokens_per_s=tt.numel() / (ms / 1e3),
+                profile=dict(device_busy_ms=prof["device_busy_ms"],
+                             wall_ms_profiled=prof["wall_ms_profiled"],
+                             gated_attention=prof["kernels"]["gated_attention"],
+                             top_kernels=prof["top_kernels"]))
 
 
 def first_token_near_tie(tparams, cfg, doc, cont: np.ndarray, j: int) -> float:
@@ -787,7 +853,8 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--sweep", action="store_true",
                    help="after the build, only time vq_assign over token counts "
-                        "with each schedule forced and fused_step over (B, n, C) "
+                        "with each schedule forced, fused_step and incr_patch over "
+                        "(B, n, C) and gated_attention over (BH, nq, nk) "
                         "(no other phase, no ok line)")
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -824,6 +891,7 @@ def main() -> int:
     if args.sweep:
         sweep_vq_assign(vqk, torch.Generator(device="cuda").manual_seed(0))
         sweep_patch(ops, ref, ipk, torch.Generator(device="cuda").manual_seed(0))
+        sweep_gated_attention(gak, torch.Generator(device="cuda").manual_seed(0))
         print(smi, flush=True)
         return 0
 
@@ -963,7 +1031,7 @@ def main() -> int:
              library_ms=None),
     ]
     vq1024 = next(v for v in vqs if v["B"] == 1 and v["N"] == 1024)  # a prefill chunk
-    ga1024 = next(g for g in gas if g["n"] == 1024)
+    ga1024 = next(g for g in gas if g["nq"] == 1024)
     ip72 = next(i for i in ips if i["B"] == 4 and i["C"] == 72)
     for name, src, tpu, launches, errs, row in (
             ("vq_assign", "vq_assign.cu", "vq_assign/vq_assign.py:61",
@@ -979,6 +1047,9 @@ def main() -> int:
             max_abs_err=max(e["max_abs_err"] for e in errs), ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None))
+    next(k for k in kernels if k["name"] == "gated_attention").update(
+        cores=GA_CORES, bound_fp32_ms=ga1024["bound_fp32_ms"],
+        bound_tc_3xtf32_ms=ga1024["bound_tc_3xtf32_ms"])
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,14 +13,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._launch import (
-    FLOAT, INT, PTR, bind, check, raise_on_error, require_cuda, stream_of,
+    FLOAT, INT, PTR, bind, check, check_aligned, raise_on_error, require_cuda,
+    stream_of,
 )
 from repro_torch.kernels.gated_attention.ref import gated_attention_ref
 
 LAUNCHES = {"gated_attention": 0}
 
 _DH = 64  # the head dim (of q, k and v) the kernel is instantiated for
-_MAX_BH = 65535  # the grid's y extent
+_MAX_BH = 65535  # batch-heads a launch takes
+# gated_attention_launch(q, k, v, o, BH, nq, nk, scale, stream)
+ARGTYPES = [PTR] * 4 + [INT] * 3 + [FLOAT, PTR]
 
 
 def reset_launches() -> None:
@@ -46,10 +49,11 @@ def gated_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
     check("q", q, (BH, nq, dh), dev)
     check("k", k, (BH, nk, dh), dev)
     check("v", v, (BH, nk, dv), dev)
+    check_aligned(q=q, k=k, v=v)  # q as float2, k and v as 16-byte copies
     out = torch.empty((BH, nq, dv), dtype=torch.float32, device=dev)
     if BH == 0 or nq == 0:
         return out
-    fn = bind("gated_attention", "gated_attention_launch", [PTR] * 4 + [INT] * 3 + [FLOAT, PTR])
+    fn = bind("gated_attention", "gated_attention_launch", ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, nq,
                  nk, float(dh ** -0.5), stream_of(dev))

@@ -216,18 +216,58 @@ def test_vq_assign_kernel_matches_plain(dev, monkeypatch, dv, Q, N, hq=2):
         assert torch.equal(xq_b, xq_s[None].repeat(3, 1, 1))
 
 
-@pytest.mark.parametrize("BH,nq,nk", [(48, 1024, 1024), (48, 1000, 1000), (48, 37, 37),
-                                      (5, 100, 70), (5, 70, 100), (3, 1, 1)])
-def test_gated_attention_kernel_matches_plain(dev, BH, nq, nk):
-    gen = torch.Generator(device=dev).manual_seed(nq + nk)
-    q = torch.randn((BH, nq, 64), generator=gen, device=dev) * 0.5
-    k = torch.randn((BH, nk, 64), generator=gen, device=dev) * 0.5
+def _qkv(dev, BH, nq, nk, amp=1.0, seed=None):
+    gen = torch.Generator(device=dev).manual_seed(nq + nk if seed is None else seed)
+    q = torch.randn((BH, nq, 64), generator=gen, device=dev) * 0.5 * amp
+    k = torch.randn((BH, nk, 64), generator=gen, device=dev) * 0.5 * amp
     v = torch.randn((BH, nk, 64), generator=gen, device=dev)
+    return q, k, v
+
+
+@pytest.mark.parametrize("BH,nq,nk,amp", [
+    (48, 1024, 1024, 1), (48, 1000, 1000, 1), (48, 37, 37, 1),
+    (5, 100, 70, 1), (5, 70, 100, 1), (3, 1, 1, 1),
+    (48, 2048, 2048, 1),  # the longest full_attention sends the kernel
+    (12, 1024, 1024, 1),  # one document of 12 heads
+    (4, 65, 65, 1),       # one row past a 64-row tile
+    (4, 16, 16, 1),       # one warp's 16 rows
+    (4, 1024, 512, 1),    # nq > nk: rows past nk attend every key
+    (4, 512, 1024, 1),    # nq < nk
+    (8, 300, 300, 3),     # |s| up to ~10: the split's error and the GELU's tail
+])
+def test_gated_attention_kernel_matches_plain(dev, BH, nq, nk, amp):
+    q, k, v = _qkv(dev, BH, nq, nk, amp)
     before = ga.LAUNCHES["gated_attention"]
     out = ga.gated_attention_bh(q, k, v)
     torch.cuda.synchronize()
     assert ga.LAUNCHES["gated_attention"] == before + 1
     torch.testing.assert_close(out, ga.gated_attention_ref(q, k, v), atol=1e-5, rtol=1e-5)
+
+
+def test_gated_attention_writes_no_row_past_nq(dev):
+    """The launcher into a buffer longer than [BH, nq, 64]: the rows past
+    nq (the last q tile is part padding) stay as they were."""
+    from repro_torch.kernels._launch import bind, stream_of
+
+    BH, nq, nk = 3, 100, 100
+    q, k, v = _qkv(dev, BH, nq, nk)
+    buf = torch.full(((BH * nq + 64) * 64,), 7.0, device=dev)
+    fn = bind("gated_attention", "gated_attention_launch", ga.ops.ARGTYPES)
+    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), BH, nq, nk,
+              0.125, stream_of(dev)) == 0
+    torch.cuda.synchronize()
+    out = buf[:BH * nq * 64].view(BH, nq, 64)
+    torch.testing.assert_close(out, ga.gated_attention_ref(q, k, v), atol=1e-5, rtol=1e-5)
+    assert (buf[BH * nq * 64:] == 7.0).all()
+
+
+def test_gated_attention_two_calls_are_bitwise_equal(dev):
+    """No atomics and a fixed order of every sum: the same bits each call."""
+    q, k, v = _qkv(dev, 48, 1000, 1000, seed=5)
+    a = ga.gated_attention_bh(q, k, v)
+    b = ga.gated_attention_bh(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_gated_attention_model_layout_gqa(dev):
@@ -293,6 +333,9 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros((4, 2, 32), device=dev)
     with pytest.raises(ValueError, match="dh=dv=64"):
         ga.gated_attention_bh(x, x, x)
+    q_off = torch.zeros((4 * 2 * 64 + 1,), device=dev)[1:].view(4, 2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ga.gated_attention_bh(q_off, q_off.clone(), q_off.clone())
     with pytest.raises(ValueError, match="Q <= 256"):
         vq.vq_assign(torch.zeros((3, 8), device=dev), torch.zeros((2, 300, 4), device=dev))
     with pytest.raises(ValueError, match="dh=Q=64"):
