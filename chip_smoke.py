@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and hold every
 hand-written kernel against its plain PyTorch version.
 
-    python3 chip_smoke.py [--sweep]
+    python3 chip_smoke.py [--sweep [NAMES]]
 
 Phases, one JSON line each with the seconds it took (any failure raises
 and exits non-zero):
@@ -10,14 +10,17 @@ and exits non-zero):
 1. device     — the card's name and power limit (nvidia-smi), CUDA version;
                 TF32 off for matmuls and cuDNN (TF32 flips VQ codes).
 2. build      — nvcc builds ``src/repro_torch/csrc/*.cu`` for sm_90a into
-                ``build/repro_torch_kernels/``.
+                ``build/repro_torch_kernels/``; ptxas's registers and spills
+                and the md5 of each kernel function's SASS.
 3. kernels    — every kernel against its plain version on the card at the
                 main paths' shapes, then timed with CUDA events (median of
                 25 after warm-up) and with torch.profiler (device time per
                 call): ``fused_step`` (B=4, n=1024, H=12, dh=Q=64, hq=2, C in
                 {8, 72, 264} with a random mask and C=72 with the engine's
                 causal one; the kernel's own device time by name beside the
-                call's), ``delta_gate`` (d=768), ``vq_assign`` (hq=2,
+                call's), ``delta_gate`` (d=768, r from 64 to 2048: the
+                served row counts; keep bits equal) beside the launch floor
+                (a one-element ``zero_()``), ``vq_assign`` (hq=2,
                 Q=64, dv=384; B=4 x N=1024, N=1024, N=32 and N=1: idx
                 equal away from near-ties, x_q bitwise the codebook row; the
                 VQ kernel's own device time by name beside the wrapper's),
@@ -37,7 +40,10 @@ and exits non-zero):
                 tokens, counters and codes, logits within 1e-3 (a code may
                 differ only at a near-tie, top-two scores within 1e-5).
 6. threshold  — the same stream at ``delta_threshold=1.0``: exact tokens,
-                and ``delta_gate`` launched.
+                ``delta_gate`` launched, a census of the row counts r it
+                ran at; then the profile phase's round of edits under
+                torch.profiler (``delta_gate``'s device time, launches and
+                share of the busy time).
 7. patch      — the serve stream through ``use_fused_kernel=False,
                 use_patch_kernel=True``: tokens and counters equal the
                 fused server's, codes equal except at near-ties, logits
@@ -67,8 +73,9 @@ and exits non-zero):
                 refresh latency, reuse counts, decode-cache bytes, peak
                 memory, and the profiled round's device busy share.
 
-Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
-the last line ``{"ok": true, "device": {...}}``. The launch counts in the
+Then the card's name and power limit, one ``{"kernels": [...]}`` line
+(``delta_gate`` at the threshold phase's most served r), and the last line
+``{"ok": true, "device": {...}}``. The launch counts in the
 kernels line come from the path that runs each kernel (serve for
 ``fused_step``, threshold for ``delta_gate``, forward for
 ``gated_attention``, the suggest flushes for ``vq_assign``, patch for
@@ -76,7 +83,10 @@ kernels line come from the path that runs each kernel (serve for
 made to compare or time a kernel do not count. Exits non-zero without a GPU
 and outside a checkout of the repo.
 
-``--sweep`` runs phases 1 and 2, then times ``vq_assign`` at 1 to 4,096
+``--sweep`` runs phases 1 and 2, then times the launch floor and
+``delta_gate`` at r in {64, ..., 4096} (d=768) under the wrapper's launch
+shape and with each of ``ops.GATE_SHAPES`` (rows a CTA, burst or
+stream) forced, ``vq_assign`` at 1 to 4,096
 tokens under the wrapper's schedule rule and with each schedule forced (the
 numbers behind the rule), and ``fused_step`` and ``incr_patch``, each
 against its plain version, at every (B, n, C) the serve phase's edit steps
@@ -85,7 +95,9 @@ run at (B in {1, 2, 4}, n=1024, C in {8, 72, 136, 264}; 1x1024x520 and
 layouts forced, and ``gated_attention`` against its plain version at
 BH=48 x n in {37, 128, 256, 512, 1000, 1024, 2048}, BH=12 x n=1024 and
 BH=48 at (nq, nk) = (1024, 512) and (512, 1024), with both bounds; one
-line a shape, and prints no ok line.
+line a shape, and prints no ok line. ``--sweep delta_gate,patch`` runs only
+the named sweeps (of ``delta_gate``, ``vq_assign``, ``patch``,
+``gated_attention``).
 """
 from __future__ import annotations
 
@@ -277,29 +289,95 @@ def check_fused_step(ops, ref, gen, C: int, B=4, n=1024, H=12, dh=64, Q=64, hq=2
                 live_mask_fraction=live / mask.numel())
 
 
+def gate_work(r: int, d: int) -> tuple[int, int]:
+    """The compulsory bytes (x_new and x_old read once, one keep byte a row
+    written) and operations (a subtract, an abs and a max an element) of
+    ``delta_gate`` on r rows of d floats."""
+    return 4 * 2 * r * d + r, 3 * r * d
+
+
+def gate_edge_rows(x_new, x_old, threshold: float) -> list[bool]:
+    """Write the gate's edge cases into the first 9 rows of x_new / x_old
+    ([r >= 9, d >= 2] f32, threshold >= 0) and return their keep bits:
+    a change of exactly the threshold (as f32) and one ulp above it; an
+    unchanged row; a NaN in x_new and one in x_old beside a large change
+    (torch.amax propagates NaN, and NaN > t is False); +inf against +inf
+    (NaN) beside a large change; -0.0 against 0.0; +inf against a finite
+    value; -inf against +inf."""
+    t = torch.tensor(threshold, dtype=torch.float32)
+    inf, big = float("inf"), 10 * threshold + 10
+    x_new[:2], x_old[:2] = 0.0, 0.0
+    x_new[0, 0], x_new[0, 1] = t, -t
+    x_new[1, 0] = torch.nextafter(t, torch.tensor(inf))
+    x_new[2:9] = x_old[2:9]
+    x_new[3, 0], x_new[3, 1] = float("nan"), x_old[3, 1] + big
+    x_old[4, -1], x_new[4, 0] = float("nan"), x_old[4, 0] + big
+    x_new[5, 0] = x_old[5, 0] = inf
+    x_new[5, 1] = x_old[5, 1] + big
+    x_new[6], x_old[6] = -0.0, 0.0
+    x_new[7, 0] = inf
+    x_new[8, -1], x_old[8, -1] = -inf, inf
+    return [False, True, False, False, False, False, False, True, True]
+
+
 def check_delta_gate(ops, ref, gen, r: int, d: int = 768, threshold: float = 1.0,
-                     timed: bool = False):
+                     timed: bool = False, plain: bool = True):
+    """``delta_gate`` against the plain version: keep bits equal, and the
+    edge rows of ``gate_edge_rows`` as it says. With ``timed``, the
+    kernel's device and call times (and, with ``plain``, the plain
+    version's) beside the bound."""
     dev = torch.device("cuda")
     x_old = torch.randn((r, d), generator=gen, device=dev)
     x_new = x_old + (torch.rand((r, d), generator=gen, device=dev) * 2 - 1) * 1.2
-    x_old[:4] = 2.5  # largest change EXACTLY the threshold: strict > drops it
-    x_new[:4] = 2.5
-    x_new[:4, 0] = 2.5 + threshold
-    x_new[4] = x_old[4]  # an unchanged row
+    edge = torch.tensor(gate_edge_rows(x_new, x_old, threshold), device=dev)
     keep = ops.delta_gate(x_new, x_old, threshold)
-    plain = ref.delta_gate_ref(x_new, x_old, threshold)
+    want = ref.delta_gate_ref(x_new, x_old, threshold)
     torch.cuda.synchronize()
-    if not torch.equal(keep, plain) or keep[:5].any():
+    if not torch.equal(keep, want) or not torch.equal(keep[:len(edge)], edge):
         raise AssertionError(f"delta_gate r={r}: keep bits differ from the plain version")
-    err = float((keep.float() - plain.float()).abs().max())
+    err = float((keep.float() - want.float()).abs().max())
     out = dict(r=r, d=d, kept=int(keep.sum()), max_abs_err=err)
     if timed:
-        kernel = timings(lambda: ops.delta_gate(x_new, x_old, threshold))
-        plain = timings(lambda: ref.delta_gate_ref(x_new, x_old, threshold))
-        out.update(ms=kernel["ms"], call_ms=kernel["call_ms"], plain_ms=plain["ms"],
-                   plain_call_ms=plain["call_ms"], timing=kernel["timing"])
-        out["bound_ms"], out["bound_by"] = bound(4 * 2 * r * d + r, 3 * r * d)
+        kernel = timings(lambda: ops.delta_gate(x_new, x_old, threshold), kernel="delta_gate")
+        out.update(ms=kernel["ms"], kernel_ms=kernel["kernel_ms"],
+                   call_ms=kernel["call_ms"], timing=kernel["timing"])
+        if plain:
+            base = timings(lambda: ref.delta_gate_ref(x_new, x_old, threshold))
+            out.update(plain_ms=base["ms"], plain_call_ms=base["call_ms"])
+        out["bound_ms"], out["bound_by"] = bound(*gate_work(r, d))
     return out
+
+
+def launch_floor() -> dict:
+    """What the card takes for the least kernel: a one-element ``zero_()``,
+    its device time under torch.profiler and its CUDA-event call time."""
+    z = torch.empty(1, device="cuda")
+    t = timings(z.zero_)
+    return dict(ms=t["ms"], call_ms=t["call_ms"], timing=t["timing"])
+
+
+# the r = B x min(R, n) the threshold phase's gate sees at d=768 (R doubles
+# from 64 on overflow), then 4096
+SWEEP_GATE = (64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def sweep_delta_gate(ops, ref, gen) -> None:
+    """``--sweep``: the launch floor, then ``delta_gate`` (d=768) at each r
+    of SWEEP_GATE under the wrapper's rule (kernel, call, plain and bound)
+    and with each (rows a CTA, burst or stream) of ``ops.GATE_SHAPES``
+    forced, every call first held against the plain version. One JSON line
+    a row count."""
+    emit("sweep", kernel="launch_floor", **launch_floor())
+    rule = getattr(ops, "gate_shape", None)  # None in a tree with one launch shape
+    for r in SWEEP_GATE:
+        row = dict(kernel="delta_gate", r=r, shape=rule(r) if rule else None,
+                   rule=check_delta_gate(ops, ref, gen, r, timed=True))
+        shapes = {}
+        for rows, burst in getattr(ops, "GATE_SHAPES", ()):
+            with mock.patch.object(ops, "gate_shape", lambda _r, _s=(rows, burst): _s):
+                shapes[f"{rows}x{'burst' if burst else 'stream'}"] = check_delta_gate(
+                    ops, ref, gen, r, timed=True, plain=False)["ms"]
+        emit("sweep", **row, shapes_ms=shapes)
 
 
 def check_vq_assign(mod, gen, B: int, N: int, hq=2, Q=64, dv=384):
@@ -556,11 +634,11 @@ def profiled(fn, names, top: int) -> dict:
                                   count=e.count) for e in ranked])
 
 
-def profile_round(srv, batch) -> dict:
+def profile_round(srv, batch, names=("fused_step", "incr_patch")) -> dict:
     """One more round of edits on a served fleet under torch.profiler:
     the device's busy time against the round's wall time, the kernels
     that take it, by device time, and the summed device time and launches
-    of each hand-written edit kernel."""
+    of each kernel whose name holds one of ``names``."""
     steps0 = srv.stats.batch_steps
 
     def round_():
@@ -568,7 +646,7 @@ def profile_round(srv, batch) -> dict:
             srv.submit_edit(did, e)
         srv.flush()
 
-    prof = profiled(round_, ("fused_step", "incr_patch"), top=10)
+    prof = profiled(round_, names, top=10)
     edit_kernels = prof.pop("kernels")
     return dict(edits=len(batch), edit_dispatches=srv.stats.batch_steps - steps0,
                 wall_ms_profiled=prof["wall_ms_profiled"],
@@ -637,6 +715,53 @@ def fused_step_census():
 
     with mock.patch.object(jit_engine, "fused_patch_assign_batched", counted):
         yield census
+
+
+@contextlib.contextmanager
+def delta_gate_census():
+    """Count the row counts r of the engine's ``delta_gate`` calls while the
+    block runs (the name is wrapped in ``jit_engine``, as in
+    ``fused_step_census``). Yields a dict that fills with {r: calls}."""
+    from repro_torch.serving import jit_engine
+
+    census: dict[int, int] = {}
+    call = jit_engine.delta_gate
+
+    def counted(x_new, *args, **kw):
+        census[x_new.shape[0]] = census.get(x_new.shape[0], 0) + 1
+        return call(x_new, *args, **kw)
+
+    with mock.patch.object(jit_engine, "delta_gate", counted):
+        yield census
+
+
+def sass_md5(build_dir: Path) -> dict | None:
+    """{library: {kernel function: md5 of its SASS}} of the built libraries
+    (``cuobjdump -sass``), so two builds of a shared source can show that a
+    kernel's machine code did not change; None without cuobjdump. The
+    anonymous namespace's per-file tag is cut from the names."""
+    import hashlib
+    import re
+
+    from repro_torch.kernels import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")  # the toolkit's own
+    if not tool.exists():
+        return None
+    out = {}
+    for lib in sorted(build_dir.glob("lib*.so")):
+        text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+        funcs, name = {}, None
+        for line in text.splitlines():
+            if "Function :" in line:
+                name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+(?=\d)", "",
+                              line.split("Function :")[1].strip())
+                funcs[name] = hashlib.md5()
+            elif name and line.strip().startswith("/*"):
+                funcs[name].update(line.strip().encode())
+        out[lib.stem.removeprefix("lib")] = {k: h.hexdigest() for k, h in funcs.items()}
+    return out
 
 
 def padded_batch(docs: dict, pool: int, width: int):
@@ -849,13 +974,17 @@ def patch_phase(params, cfg, docs, stream, fused) -> dict:
                 max_logits_diff=logit_diff, profile=prof)
 
 
+SWEEPS = ("delta_gate", "vq_assign", "patch", "gated_attention")
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--sweep", action="store_true",
-                   help="after the build, only time vq_assign over token counts "
-                        "with each schedule forced, fused_step and incr_patch over "
-                        "(B, n, C) and gated_attention over (BH, nq, nk) "
-                        "(no other phase, no ok line)")
+    p.add_argument("--sweep", nargs="?", const=",".join(SWEEPS), metavar="NAMES",
+                   help="after the build, only time delta_gate over r with each "
+                        "launch shape forced, vq_assign over token counts with each "
+                        "schedule forced, fused_step and incr_patch over (B, n, C) "
+                        "and gated_attention over (BH, nq, nk); a comma list of "
+                        f"{SWEEPS} picks some (no other phase, no ok line)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -887,11 +1016,15 @@ def main() -> int:
     ptxas = [l.strip() for p in sorted(_build.build_dir().glob("*.ptxas.txt"))
              for l in p.read_text().splitlines() if "registers" in l or "spill" in l]
     emit("build", seconds=time.perf_counter() - t0, compiled=compiled,
-         out_dir=str(_build.build_dir().relative_to(ROOT)), ptxas=ptxas)
+         out_dir=str(_build.build_dir().relative_to(ROOT)), ptxas=ptxas,
+         sass_md5=sass_md5(_build.build_dir()))
     if args.sweep:
-        sweep_vq_assign(vqk, torch.Generator(device="cuda").manual_seed(0))
-        sweep_patch(ops, ref, ipk, torch.Generator(device="cuda").manual_seed(0))
-        sweep_gated_attention(gak, torch.Generator(device="cuda").manual_seed(0))
+        sweeps = dict(delta_gate=lambda g: sweep_delta_gate(ops, ref, g),
+                      vq_assign=lambda g: sweep_vq_assign(vqk, g),
+                      patch=lambda g: sweep_patch(ops, ref, ipk, g),
+                      gated_attention=lambda g: sweep_gated_attention(gak, g))
+        for name in args.sweep.split(","):
+            sweeps[name](torch.Generator(device="cuda").manual_seed(0))
         print(smi, flush=True)
         return 0
 
@@ -900,14 +1033,14 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     fused = [check_fused_step(ops, ref, gen, C) for C in (8, 72, 264)]
     fused.append(check_fused_step(ops, ref, gen, 72, causal=True))
-    gates = [check_delta_gate(ops, ref, gen, r) for r in (64, 1024)]
-    gate_timed = check_delta_gate(ops, ref, gen, 4 * 64, timed=True)  # B=4 x R=64
+    gates = [check_delta_gate(ops, ref, gen, r, timed=True) for r in SWEEP_GATE[:-1]]
+    floor = launch_floor()
     vqs = [check_vq_assign(vqk, gen, B, N) for B, N in ((4, 1024), (1, 1024), (1, 32), (1, 1))]
     gas = [check_gated_attention(gak, gen, n) for n in (1024, 1000, 37)]
     ips = [check_incr_patch(ipk, gen, C) for C in (8, 72, 264)]
     ips.append(check_incr_patch(ipk, gen, 1032, B=1))  # the most served step
     emit("kernels", seconds=time.perf_counter() - t0, fused_step=fused,
-         delta_gate=gates + [gate_timed], vq_assign=vqs, gated_attention=gas,
+         delta_gate=gates, launch_floor=floor, vq_assign=vqs, gated_attention=gas,
          incr_patch=ips)
 
     # ---- 4. serve (the main path)
@@ -975,18 +1108,32 @@ def main() -> int:
     # ---- 6. threshold
     t0 = time.perf_counter()
     reset_launches()
-    thr, _ = serve(params, cfg, docs, stream,
-                   delta_threshold=1.0)
+    with delta_gate_census() as gate_rows:
+        thr, _ = serve(params, cfg, docs, stream,
+                       delta_threshold=1.0)
     thr_launches = dict(ops.LAUNCHES)
     for did in docs:
         if not np.array_equal(thr.tokens(did), srv.tokens(did)):
             raise AssertionError(f"threshold: {did} tokens differ")
     if thr_launches["delta_gate"] < 1:
         raise AssertionError("threshold: delta_gate never launched")
+    if sum(gate_rows.values()) != thr_launches["delta_gate"]:
+        raise AssertionError(f"threshold: the census counted {sum(gate_rows.values())} "
+                             f"delta_gate calls, the wrapper {thr_launches['delta_gate']}")
     if thr_launches["fused_step"] != n_layers(cfg) * thr.stats.batch_steps:
         raise AssertionError("threshold: fused_step launches != 12 per dispatch")
-    emit("threshold", seconds=time.perf_counter() - t0, launches=thr_launches,
-         edit_dispatches=thr.stats.batch_steps, overflows=thr.stats.overflows)
+    dispatches, overflows = thr.stats.batch_steps, thr.stats.overflows
+    # one more round under torch.profiler: the profile phase's edits
+    with delta_gate_census() as round_rows:
+        thr_prof = profile_round(thr, make_stream(
+            cfg.vocab, seed=1, rounds=1, lens={d: thr.docs[d].n for d in docs})[0],
+            names=("delta_gate", "fused_step"))
+    gate_prof = thr_prof["edit_kernels"]["delta_gate"]
+    thr_prof.update(gate_rows=round_rows,
+                    delta_gate_busy_share=gate_prof["ms"] / thr_prof["device_busy_ms"])
+    emit("threshold", seconds=time.perf_counter() - t0, nvidia_smi=smi,
+         launches=thr_launches, gate_rows=gate_rows, edit_dispatches=dispatches,
+         overflows=overflows, profile=thr_prof)
     del thr
 
     # ---- 7. patch: the unfused step with the incr_patch kernel
@@ -1015,6 +1162,9 @@ def main() -> int:
 
     # ---- summary
     c72 = next(f for f in fused if f["C"] == 72 and f["mask"] == "random")
+    r_top = max(gate_rows, key=gate_rows.get)  # the most served r
+    gate_top = (next((g for g in gates if g["r"] == r_top), None)
+                or check_delta_gate(ops, ref, gen, r_top, timed=True))
     kernels = [
         dict(name="fused_step", route="cuda", source="src/repro_torch/csrc/fused_step.cu",
              replaces="src/repro/kernels/fused_step/fused_step.py:179",
@@ -1025,10 +1175,10 @@ def main() -> int:
         dict(name="delta_gate", route="cuda", source="src/repro_torch/csrc/fused_step.cu",
              replaces="src/repro/kernels/fused_step/fused_step.py:242",
              launches=thr_launches["delta_gate"],
-             max_abs_err=max(g["max_abs_err"] for g in gates + [gate_timed]),
-             ms=gate_timed["ms"], plain_ms=gate_timed["plain_ms"],
-             bound_ms=gate_timed["bound_ms"], bound_by=gate_timed["bound_by"],
-             library_ms=None),
+             max_abs_err=max(g["max_abs_err"] for g in gates + [gate_top]),
+             ms=gate_top["ms"], plain_ms=gate_top["plain_ms"],
+             bound_ms=gate_top["bound_ms"], bound_by=gate_top["bound_by"],
+             library_ms=None, r=r_top, launch_floor_ms=floor["ms"]),
     ]
     vq1024 = next(v for v in vqs if v["B"] == 1 and v["N"] == 1024)  # a prefill chunk
     ga1024 = next(g for g in gas if g["nq"] == 1024)

@@ -73,9 +73,31 @@
 // grid's tail (576 busy CTAs at B=4 fill 2.2 waves of 264 slots; 192 at
 // B=1 leave 72 SMs with one CTA).
 //
-// delta_gate: one warp per row, a strided max of |x_new - x_old| and a warp
-// shuffle reduce, then the strict compare. Bytes-bound (2 x r x d floats);
-// max, abs and > are exact, so keep bits equal the plain version bitwise.
+// delta_gate: keep[i] = max_d |x_new[i,d] - x_old[i,d]| > threshold. Its
+// bound is bytes (2 x r x d floats, 0.47 us at r=256, d=768), but at the
+// served r (64 to 1024 rows of d=768) the inputs are L2-warm and a call is a
+// launch (a one-element zero_() takes ~1 us on the card) plus memory round
+// trips; from r ~ 1024 on, the L2's bandwidth. One warp a row, rows_per_cta
+// rows a CTA, 16-byte loads where d % 4 == 0 and both bases are 16-byte
+// aligned (else a scalar loop of the same bits); a lane takes its row in
+// passes of GATE_CHUNKS chunks of each input (one pass at d=768), loaded in
+// one of two ways, chosen with rows_per_cta by the wrapper from r
+// (kernels/fused_step/ops.py gate_shape):
+// * burst: every load of the pass before the first max, chunks past the
+//   row's end skipped. One round trip a row; fastest while the rows leave
+//   most of the card idle (r <= 512).
+// * stream: chunks past the row's end load the last chunk again (the max
+//   does not change), so the pass has no branch, and the compiler
+//   interleaves its loads with the max, two chunks in flight (35 registers
+//   against 78). Fewer requests queue at the L2 once the rows fill the card
+//   (r > 512).
+// A row over several warps with a shared-memory step, and an explicitly
+// prefetched loop, were measured slower (PERF.md §6, delta_gate). The max
+// is taken on the bits of |diff|, which order as unsigned integers as the
+// floats do, with every NaN above +inf: the unsigned max propagates NaN as
+// torch.amax does (fmaxf drops it), so a row with a NaN difference is never
+// kept. max, abs and > are exact, so the keep
+// bits equal the plain version's bitwise.
 //
 // Plain C interface, loaded with ctypes; each launcher returns the CUDA
 // error of its launch so the Python wrapper can raise on a refused launch.
@@ -94,7 +116,8 @@ using repro_torch::gelu_tanh;
 using repro_torch::takes_first_max;
 
 constexpr int WARPS = THREADS / 32;
-constexpr int GATE_WARPS = 8;            // rows per delta_gate block
+constexpr int GATE_CHUNKS = 6;  // 16-byte chunks of each input a lane takes a pass
+constexpr int GATE_ROWS = 8;   // most rows (warps) a delta_gate CTA
 constexpr int SMEM_BYTES = 4 * (Q_FLOATS + RING_FLOATS + W_FLOATS) + 4 * (RT + 1);
 
 __global__ void __launch_bounds__(THREADS, 2)
@@ -375,26 +398,58 @@ fused_step_kernel(const float* __restrict__ q,       // [B, n, H, DH]
   }
 }
 
-__global__ void delta_gate_kernel(const float* __restrict__ x_new,  // [r, d]
-                                  const float* __restrict__ x_old,  // [r, d]
-                                  unsigned char* __restrict__ keep, // [r] bool
-                                  int r, int d, float threshold) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * GATE_WARPS + warp;
+// |a - o| as the bits of a float with the sign cleared: as unsigned
+// integers they order as the floats do, and every NaN lies above +inf.
+__device__ __forceinline__ unsigned abs_diff_bits(float a, float o) {
+  return __float_as_uint(a - o) & 0x7fffffffu;
+}
+
+__device__ __forceinline__ unsigned fold(unsigned m, float4 a, float4 o) {
+  m = max(m, abs_diff_bits(a.x, o.x));
+  m = max(m, abs_diff_bits(a.y, o.y));
+  m = max(m, abs_diff_bits(a.z, o.z));
+  return max(m, abs_diff_bits(a.w, o.w));
+}
+
+template <bool BURST>
+__global__ void __launch_bounds__(GATE_ROWS * 32)
+delta_gate_kernel(const float* __restrict__ x_new,  // [r, d]
+                  const float* __restrict__ x_old,  // [r, d]
+                  unsigned char* __restrict__ keep, // [r] bool
+                  int r, int d, float threshold, bool vec) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   if (row >= r) return;  // warp-uniform: the shuffles below see a full warp
   const float* a = x_new + (size_t)row * d;
   const float* o = x_old + (size_t)row * d;
-  float m = 0.0f;  // |diff| >= 0, and a NaN diff propagates like torch.amax
-  for (int i = lane; i < d; i += 32) {
-    const float v = fabsf(a[i] - o[i]);
-    m = (v > m || v != v) ? v : m;
+  unsigned m = 0;  // the bits of max |diff| so far (of NaN once one is seen)
+  if (vec) {
+    const float4* a4 = reinterpret_cast<const float4*>(a);
+    const float4* o4 = reinterpret_cast<const float4*>(o);
+    const int n4 = d / 4;
+    for (int base = lane; base < n4; base += GATE_CHUNKS * 32) {
+      float4 va[GATE_CHUNKS], vo[GATE_CHUNKS];
+#pragma unroll
+      for (int k = 0; k < GATE_CHUNKS; ++k) {
+        const int c = base + k * 32;
+        if (!BURST) {  // past the row's end, a chunk again: the max stays
+          va[k] = __ldg(a4 + min(c, n4 - 1));
+          vo[k] = __ldg(o4 + min(c, n4 - 1));
+        } else if (c < n4) {
+          va[k] = __ldg(a4 + c);
+          vo[k] = __ldg(o4 + c);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < GATE_CHUNKS; ++k)
+        if (!BURST || base + k * 32 < n4) m = fold(m, va[k], vo[k]);
+    }
+  } else {
+    for (int i = lane; i < d; i += 32) m = max(m, abs_diff_bits(a[i], o[i]));
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float other = __shfl_xor_sync(0xffffffffu, m, off);
-    m = (other > m || other != other) ? other : m;
-  }
-  if (lane == 0) keep[row] = (m > threshold) ? 1 : 0;
+  for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (lane == 0) keep[row] = (__uint_as_float(m) > threshold) ? 1 : 0;  // NaN > t is false
 }
 
 }  // namespace
@@ -418,9 +473,17 @@ extern "C" int fused_step_launch(const float* q, const float* k_new,
 
 extern "C" int delta_gate_launch(const float* x_new, const float* x_old,
                                  unsigned char* keep, int r, int d,
-                                 float threshold, cudaStream_t stream) {
-  const dim3 grid((r + GATE_WARPS - 1) / GATE_WARPS);
-  delta_gate_kernel<<<grid, GATE_WARPS * 32, 0, stream>>>(x_new, x_old, keep,
-                                                          r, d, threshold);
+                                 float threshold, int rows_per_cta, int burst,
+                                 cudaStream_t stream) {
+  if (rows_per_cta < 1 || rows_per_cta > GATE_ROWS) return (int)cudaErrorInvalidValue;
+  const bool vec = d % 4 == 0 && reinterpret_cast<size_t>(x_new) % 16 == 0 &&
+                   reinterpret_cast<size_t>(x_old) % 16 == 0;
+  const dim3 grid((r + rows_per_cta - 1) / rows_per_cta);
+  if (burst)
+    delta_gate_kernel<true><<<grid, rows_per_cta * 32, 0, stream>>>(
+        x_new, x_old, keep, r, d, threshold, vec);
+  else
+    delta_gate_kernel<false><<<grid, rows_per_cta * 32, 0, stream>>>(
+        x_new, x_old, keep, r, d, threshold, vec);
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,12 @@ _DH = 64  # the head dim and codebook size the kernel is instantiated for
 _Q = 64
 _ROWS = 64  # rows of a fused_step CTA (csrc/fused_step.cu RT)
 
+# (rows a CTA, burst) of delta_gate launches that ``chip_smoke.py --sweep``
+# times at every served r, beside the rule of ``gate_shape``; burst=False
+# streams the row (csrc/fused_step.cu delta_gate)
+GATE_SHAPES = tuple((rows, burst) for burst in (True, False) for rows in (1, 2, 4, 8))
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -78,6 +84,16 @@ def fused_patch_assign_batched(q, k_new, k_old, vc_new, vc_old, mask, T_base,
     return T_all, codes
 
 
+def gate_shape(r: int) -> tuple[int, bool]:
+    """(rows a CTA, burst) of the delta_gate launch for r rows, from
+    ``chip_smoke.py --sweep`` at d=768 (PERF.md §6, delta_gate): bursts
+    over as many CTAs as leave the card mostly idle, then streamed rows, 8
+    a CTA."""
+    if r <= 512:
+        return min(4, max(1, r // 64)), True
+    return 8, False
+
+
 def delta_gate(x_new, x_old, threshold: float):
     """Sigma-delta propagation gate: keep[i] = max_d |x_new[i] − x_old[i]| >
     threshold (strict). x_new/x_old: [r, d] f32; returns keep [r] bool,
@@ -95,10 +111,12 @@ def delta_gate(x_new, x_old, threshold: float):
         return keep
     if d == 0:
         raise ValueError("delta_gate needs d >= 1")
-    fn = bind("fused_step", "delta_gate_launch", [PTR, PTR, PTR, INT, INT, FLOAT, PTR])
+    rows, burst = gate_shape(r)
+    fn = bind("fused_step", "delta_gate_launch",
+              [PTR, PTR, PTR, INT, INT, FLOAT, INT, INT, PTR])
     with torch.cuda.device(x_new.device):
         err = fn(x_new.data_ptr(), x_old.data_ptr(), keep.data_ptr(), r, d,
-                 float(threshold), stream_of(x_new.device))
+                 float(threshold), rows, int(burst), stream_of(x_new.device))
     raise_on_error("delta_gate", err)
     LAUNCHES["delta_gate"] += 1
     return keep

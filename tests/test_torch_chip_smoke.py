@@ -1,5 +1,5 @@
 """``chip_smoke.py``'s arithmetic that needs no card: the work and bounds it
-states for ``gated_attention`` on each route."""
+states for ``gated_attention`` on each route and for ``delta_gate``."""
 import sys
 from pathlib import Path
 
@@ -35,3 +35,14 @@ def test_gated_attention_bounds_at_the_forward_shape():
     tc, by = cs.bound(nbytes, cs.GA_PRODUCTS * flops, cs.GA_PEAK)
     assert by == "operations" and abs(tc - 0.039083) < 1e-5
     assert cs.bound(nbytes, 0)[1] == "bytes"
+
+
+@pytest.mark.parametrize("r,nbytes,bound_us", [(256, 1_573_120, 0.469588),
+                                               (2048, 12_584_960, 3.756704)])
+def test_delta_gate_bound_is_bytes_at_the_served_rows(r, nbytes, bound_us):
+    """d=768: both inputs read once and a keep byte a row written, over
+    3.35 TB/s; three operations an element are far below the FP32 peak."""
+    got_bytes, ops = cs.gate_work(r, 768)
+    assert got_bytes == nbytes and ops == 3 * r * 768
+    ms, by = cs.bound(got_bytes, ops)
+    assert by == "bytes" and abs(ms * 1e3 - bound_us) < 1e-5

@@ -6,6 +6,10 @@ run it there without it):
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Elsewhere every test skips: a CUDA kernel has no CPU mode."""
+import sys
+from pathlib import Path
+from unittest import mock
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -17,6 +21,11 @@ from repro_torch.kernels.fused_step import (  # noqa: E402
     LAUNCHES, delta_gate, delta_gate_ref, fused_patch_assign_batched,
     fused_patch_assign_ref,
 )
+from repro_torch.kernels.fused_step import ops as fs_ops  # noqa: E402
+from repro_torch.kernels.fused_step.ops import GATE_SHAPES  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -136,18 +145,55 @@ def test_fused_step_on_two_streams_at_once(dev):
             assert torch.equal(codes_k, runs[0][1])
 
 
-@pytest.mark.parametrize("r,d", [(64, 768), (1024, 768), (3, 5)])
-def test_delta_gate_kernel_bitwise_equals_plain(dev, r, d):
-    gen = torch.Generator(device=dev).manual_seed(r)
-    x_old = torch.randn((r, d), generator=gen, device=dev)
-    x_new = x_old + (torch.rand((r, d), generator=gen, device=dev) * 2 - 1) * 1.2
-    x_new[0] = x_old[0]
-    x_old[0, 0], x_new[0, 0] = 2.5, 3.5  # change exactly the threshold
+def _gate_rows(dev, r, d, threshold, offset=0):
+    """Random [r, d] rows (a change of up to 1.2 x the threshold) with the
+    edge rows of ``chip_smoke.gate_edge_rows``; with ``offset``, views that
+    start ``offset`` floats into their storage (not 16-byte aligned)."""
+    gen = torch.Generator(device=dev).manual_seed(r + d)
+    x_old = torch.randn((r * d + offset,), generator=gen, device=dev)[offset:].view(r, d)
+    x_new = torch.empty((r * d + offset,), device=dev)[offset:].view(r, d)
+    x_new.copy_(x_old + (torch.rand((r, d), generator=gen, device=dev) * 2 - 1)
+                * 1.2 * threshold)
+    return x_new, x_old, cs.gate_edge_rows(x_new, x_old, threshold)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("threshold", [1.0, 0.1])
+@pytest.mark.parametrize("r,d", [(r, 768) for r in (64, 128, 256, 512, 1024, 2048)]
+                         + [(37, 5), (300, 770)])
+def test_delta_gate_kernel_bitwise_equals_plain(dev, r, d, threshold, offset):
+    """Keep bits equal the plain version's at every served r (d=768), on the
+    scalar path (d = 5, 770; an unaligned base) and at the edge rows: NaN,
+    +inf against +inf, -0.0 against 0.0, a change of exactly the threshold
+    (0.1 is not an f32) and one ulp above it."""
+    x_new, x_old, edge = _gate_rows(dev, r, d, threshold, offset)
+    assert (x_new.data_ptr() % 16 != 0) == bool(offset)
     before = LAUNCHES["delta_gate"]
-    keep = delta_gate(x_new, x_old, 1.0)
+    keep = delta_gate(x_new, x_old, threshold)
     assert LAUNCHES["delta_gate"] == before + 1
+    assert torch.equal(keep, delta_gate_ref(x_new, x_old, threshold))
+    assert keep[:len(edge)].tolist() == edge
+
+
+@pytest.mark.parametrize("shape", GATE_SHAPES)
+@pytest.mark.parametrize("r,d", [(300, 768), (37, 5), (9, 4096), (9, 8)])
+def test_delta_gate_every_launch_shape_gives_the_same_bits(dev, r, d, shape):
+    """Each (rows a CTA, burst or stream) the sweep forces gives the plain
+    version's bits, also where a row takes several passes (d=4096) or a
+    CTA's last rows run past r."""
+    x_new, x_old, edge = _gate_rows(dev, r, d, 1.0)
+    with mock.patch.object(fs_ops, "gate_shape", lambda _r: shape):
+        keep = delta_gate(x_new, x_old, 1.0)
     assert torch.equal(keep, delta_gate_ref(x_new, x_old, 1.0))
-    assert not keep[0]
+    assert keep[:len(edge)].tolist() == edge
+
+
+def test_delta_gate_refuses_a_launch_shape_the_kernel_does_not_take(dev):
+    x = torch.zeros((4, 768), device=dev)
+    for shape in ((0, True), (9, False), (16, True)):
+        with mock.patch.object(fs_ops, "gate_shape", lambda _r, _s=shape: _s):
+            with pytest.raises(RuntimeError, match="delta_gate kernel launch failed"):
+                delta_gate(x, x, 1.0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

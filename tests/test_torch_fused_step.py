@@ -9,16 +9,23 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.kernels.fused_step import fused_patch_assign as ref_fused  # noqa: E402
+from repro.kernels.fused_step.fused_step import delta_gate_kernel as ref_gate_kernel  # noqa: E402
 from repro.kernels.fused_step import fused_patch_assign_ref as ref_plain  # noqa: E402
 from repro.kernels.fused_step.ref import delta_gate_ref as ref_gate  # noqa: E402
 from repro_torch.kernels.fused_step import (  # noqa: E402
     LAUNCHES, delta_gate, delta_gate_ref, fused_patch_assign_batched,
     fused_patch_assign_ref,
 )
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402
 
 
 def _inputs(n, H, dh, C, Q, hq, seed=0, mask_p=0.6, batch=None):
@@ -106,3 +113,30 @@ def test_plain_delta_gate_bitwise_equals_reference(r, d, threshold):
     np.testing.assert_array_equal(
         delta_gate_ref(torch.from_numpy(x_new), torch.from_numpy(x_old),
                        threshold).numpy(), ref)
+
+
+@pytest.mark.parametrize("r,d,threshold,block_r", [
+    (64, 768, 1.0, 128),
+    (64, 768, 0.1, 16),    # 0.1 is not an f32: the compare must be in f32
+    (37, 5, 0.1, 8),       # ragged rows (padding in the Pallas grid)
+    (20, 770, 0.25, 8),
+])
+def test_plain_delta_gate_edge_rows_equal_reference_and_pallas(r, d, threshold, block_r):
+    """NaN, +inf against +inf, -0.0 against 0.0, a change of exactly the
+    threshold and one ulp above it (``chip_smoke.gate_edge_rows``, the rows
+    the card checks): the port's plain gate equals the reference's jnp
+    oracle and its Pallas kernel in interpret mode bit for bit."""
+    rng = np.random.default_rng(r + d)
+    x_old = torch.from_numpy(rng.standard_normal((r, d)).astype(np.float32))
+    x_new = x_old + torch.from_numpy(
+        rng.uniform(-1.5, 1.5, (r, d)).astype(np.float32)) * threshold
+    edge = cs.gate_edge_rows(x_new, x_old, threshold)
+    before = dict(LAUNCHES)
+    keep = delta_gate(x_new, x_old, threshold)
+    assert LAUNCHES == before  # a CPU tensor runs the plain version
+    xn, xo = jnp.asarray(x_new.numpy()), jnp.asarray(x_old.numpy())
+    for want in (ref_gate(xn, xo, threshold),
+                 ref_gate_kernel(xn, xo, threshold=threshold, block_r=block_r,
+                                 interpret=True)):
+        np.testing.assert_array_equal(keep.numpy(), np.asarray(want))
+    assert keep[:len(edge)].tolist() == edge
