@@ -72,6 +72,42 @@ and exits non-zero):
                 ``vq_assign`` must launch inside the (unprofiled) flushes;
                 refresh latency, reuse counts, decode-cache bytes, peak
                 memory, and the profiled round's device busy share.
+11. tiered    — the serve stream's first 3 rounds with 8-token suggestions
+                on all 4 documents through ``BatchServer(max_batch=2)`` whose
+                device budget holds two 1024-capacity states (and half a
+                third, for one decode cache) and whose host budget holds one
+                (``tiered_budgets``; cold spills under a temporary
+                directory), against an unbudgeted server on the same stream:
+                evictions, spills, rehydrations and a dropped suggestion
+                cache must occur; tokens, every suggestion, every state leaf
+                and ``logits()`` bitwise equal; 12 ``fused_step`` launches a
+                dispatch; the stats reconcile with a recount of the store;
+                one forced ``evict(..., "warm")`` frees at least the state's
+                bytes of ``memory_allocated``; one document through
+                ``checkpoint_document`` -> ``export_document`` ->
+                ``import_document`` into a second server with bitwise
+                logits. Prints the hot-hit rate, bytes per tier, peak memory
+                beside the budget and the weights.
+12. async     — ``AsyncBatchServer(max_batch_delay_ms=8)`` over the budgeted
+                server: one client thread per document submits its share of
+                the stream's first 2 rounds, waits for a suggestion after
+                each, and streams its subscription; every suggestion and
+                the final tokens equal a sequential ``BatchServer`` fed each
+                document's requests in order, and streamed token events
+                reassemble into each streamed continuation. Prints edit and
+                suggestion latency (p50, p99, max) and edits per round.
+13. fleet     — ``FleetRouter`` with 2 replica workers on the card (full
+                width, seed 0) and the 4 documents: the 256-token document
+                alone takes its round-0 edits (a grow), migrates, takes 16
+                inserts at one position (a defrag); its logits are bitwise
+                equal to an in-process server's and its suggestions
+                token-exact around the move; the router's stats reconcile
+                with the replicas' and the acked edits; after a checkpoint,
+                one replica is killed with edits in flight and every
+                document resumes token-exact on the survivor; the fleet
+                closes leaving no child process and no cold file. Prints
+                the workers' boot seconds, the migration's and the
+                failover's ms and the router's stats.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line
 (``delta_gate`` at the threshold phase's most served r), and the last line
@@ -103,7 +139,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -927,8 +965,8 @@ def suggest_phase(params, cfg, docs: dict, stream, n_new: int = 8, appends: int 
     return dict(suggestions_checked=checked, near_tie_suggestions=near_ties,
                 vq_assign_launches=vq_launches,
                 headroom_defrags=st.suggest_headroom_defrags,
-                refreshes=st.suggest_refreshes, refresh_ms_median=st.suggest_latency.p50,
-                refresh_ms_max=st.suggest_latency.max_ms,
+                refreshes=st.suggest_refreshes, refresh_ms_median=st.refresh_latency.p50,
+                refresh_ms_max=st.refresh_latency.max_ms,
                 prefill_rows_reused=ss.prefill_rows_reused,
                 prefill_rows_recomputed=ss.prefill_rows_recomputed,
                 rebuilds=ss.rebuilds, decode_steps=ss.decode_steps,
@@ -972,6 +1010,406 @@ def patch_phase(params, cfg, docs, stream, fused) -> dict:
     return dict(launches={"incr_patch": launches["incr_patch"]},
                 edit_dispatches=dispatches, near_tie_flips=flips,
                 max_logits_diff=logit_diff, profile=prof)
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a nested dict / list / tuple."""
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if isinstance(tree, torch.Tensor) else 0
+
+
+def tiered_budgets(cfg) -> tuple[int, int]:
+    """(device, host) budget bytes of the tiered and async phases: the
+    device budget holds two 1024-capacity states of ``cfg`` and half of a
+    third (room for one suggestion decode cache, which is soft state), the
+    host budget one state and half of a second."""
+    from repro_torch.serving.jit_engine import state_nbytes_for_config
+
+    per = state_nbytes_for_config(cfg, 1024)
+    return int(2.5 * per), int(1.5 * per)
+
+
+def reconcile(srv) -> dict:
+    """Recount every byte and document counter of ``srv``'s state store from
+    the objects themselves and raise unless ``BatchStats`` holds the same.
+    Returns the recount."""
+    from repro_torch.serving.jit_engine import state_nbytes
+
+    s, tiers = srv.stats, srv.store.tiers()
+    if set(tiers) != set(srv.docs):
+        raise AssertionError("reconcile: the store and the server hold other documents")
+    by = {t: [d for d, x in tiers.items() if x == t] for t in ("hot", "warm", "cold")}
+    got = dict(docs_hot=len(by["hot"]), docs_warm=len(by["warm"]), docs_cold=len(by["cold"]),
+               bytes_hot=sum(state_nbytes(srv.docs[d].state) for d in by["hot"]),
+               bytes_warm=sum(srv.store.nbytes(d) for d in by["warm"]),
+               bytes_cold=sum(srv.store.nbytes(d) for d in by["cold"]),
+               bytes_suggest=sum(srv._sugg.cache_nbytes(k) for k in srv._sugg.cached_keys())
+               if srv._sugg is not None else 0)
+    for name, want in got.items():
+        if getattr(s, name) != want:
+            raise AssertionError(f"reconcile: {name} is {getattr(s, name)}, a recount {want}")
+    if any(srv.docs[d].state is not None for d in by["warm"] + by["cold"]):
+        raise AssertionError("reconcile: an evicted document still holds device state")
+    if s.state_touches != s.hot_hits + s.rehydrations + s.rollback_rebuilds:
+        raise AssertionError("reconcile: touches != hot hits + rehydrations + rebuilds")
+    return got
+
+
+def _serve_suggesting(srv, docs, stream, n_new: int):
+    """Open ``docs`` on ``srv`` with ``n_new``-token subscriptions, send the
+    stream round by round; returns each round's suggestions {doc: tokens}."""
+    srv.open_documents({k: list(v) for k, v in docs.items()})
+    for did in docs:
+        srv.submit_suggest(did, n_new)
+    rounds = []
+    for batch in [[]] + list(stream):
+        for did, e in batch:
+            srv.submit_edit(did, e)
+        srv.flush()
+        rounds.append({did: srv.suggestion(did) for did in docs})
+    return rounds
+
+
+def tiered_phase(params, cfg, docs: dict, stream, n_new: int = 8) -> dict:
+    """The serve stream with ``n_new``-token suggestions on every document
+    through a server whose device budget holds two 1024-capacity states and
+    whose host budget holds one (``tiered_budgets``), against an unbudgeted
+    server with the same dispatches (both max_batch 2: a dispatch needs its
+    chunk hot at once). Tokens, suggestions, state leaves and logits must be
+    bitwise equal; then one document is checkpointed, exported and
+    imported into a second server with bitwise logits."""
+    import tempfile
+
+    from repro_torch.serving.batch_server import BatchServer
+    from repro_torch.serving.jit_engine import state_nbytes_for_config, state_to_host
+
+    budget, host_budget = tiered_budgets(cfg)
+    per = state_nbytes_for_config(cfg, 1024)
+    # the unbudgeted server first, kept on the host, so the budgeted one's
+    # peak memory is its own
+    free = BatchServer(params, cfg, max_batch=2, device=DEVICE)
+    want_sugg = _serve_suggesting(free, docs, stream, n_new)
+    want = {did: (free.tokens(did), free.logits(did), state_to_host(free.state(did)))
+            for did in docs}
+    want_dispatches = free.stats.batch_steps
+    del free
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    spill = tempfile.mkdtemp(prefix="chip-smoke-cold-")
+    srv = BatchServer(params, cfg, max_batch=2, device_budget_bytes=budget,
+                      host_budget_bytes=host_budget, spill_dir=spill, device=DEVICE)
+    dropped = []
+    drop = srv.store._drop_suggest
+
+    def counted_drop(doc_id):
+        if srv._sugg is not None and srv._sugg.cache_nbytes(doc_id):
+            dropped.append(doc_id)
+        drop(doc_id)
+
+    srv.store._drop_suggest = counted_drop
+    reset_launches()
+    got_sugg = _serve_suggesting(srv, docs, stream, n_new)
+    launches = launch_counters()[1]()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    weights = tensor_bytes(srv._weights[:2]) + tensor_bytes(srv.suggester.params)
+    st = srv.stats
+    for name in ("evictions", "spills", "rehydrations"):
+        if getattr(st, name) < 1:
+            raise AssertionError(f"tiered: the budgets forced no {name}")
+    if not dropped:
+        raise AssertionError("tiered: no suggestion cache was dropped")
+    if st.batch_steps != want_dispatches:
+        raise AssertionError(f"tiered: {st.batch_steps} dispatches, unbudgeted {want_dispatches}")
+    if launches["fused_step"] != n_layers(cfg) * st.batch_steps:
+        raise AssertionError(f"tiered: fused_step launched {launches['fused_step']} times for "
+                             f"{st.batch_steps} edit dispatches")
+    for r, (g, w) in enumerate(zip(got_sugg, want_sugg)):
+        for did in docs:
+            if g[did] is None or not np.array_equal(g[did], w[did]):
+                raise AssertionError(f"tiered: {did} suggestion after round {r} differs "
+                                     f"({g[did]} vs {w[did]})")
+    recount = reconcile(srv)
+    for did in docs:
+        toks, logits, state = want[did]
+        if not np.array_equal(srv.tokens(did), toks):
+            raise AssertionError(f"tiered: {did} tokens differ")
+        if not np.array_equal(srv.logits(did), logits):
+            raise AssertionError(f"tiered: {did} logits differ from the unbudgeted server's")
+        for name, a, b in zip(state._fields, state_to_host(srv.state(did)), state):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"tiered: {did} state leaf {name} differs")
+    reconcile(srv)
+    tiers = srv.store.tiers()
+    # one forced eviction of a hot document: the device memory must fall by
+    # at least its state's bytes (its decode cache goes too)
+    victim = next(d for d in docs if tiers[d] == "hot")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    srv.evict(victim, "warm")
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if before - after < srv.store.nbytes(victim):
+        raise AssertionError(f"tiered: evicting {victim} freed {before - after} bytes of its "
+                             f"{srv.store.nbytes(victim)}")
+    reconcile(srv)
+    # migration: checkpoint, export, import into a second server
+    moved = "d300"
+    ref_logits = srv.logits(moved)
+    path = f"{spill}/{moved}.migrate.npz"
+    srv.checkpoint_document(moved, path)
+    srv.export_document(moved, path)
+    other = BatchServer(params, cfg, max_batch=2, device=DEVICE)
+    other.import_document(moved, path)
+    if not np.array_equal(other.logits(moved), ref_logits):
+        raise AssertionError("tiered: the imported document's logits differ")
+    reconcile(srv)
+    out = dict(budget_bytes=budget, host_budget_bytes=host_budget, state_bytes_1024=per,
+               evictions=st.evictions, spills=st.spills, rehydrations=st.rehydrations,
+               suggest_caches_dropped=len(dropped), hot_hit_rate=st.hot_hit_rate,
+               state_touches=st.state_touches, edit_dispatches=st.batch_steps,
+               fused_step_launches=launches["fused_step"], tiers=tiers, recount=recount,
+               peak_mem_bytes=peak, weights_bytes=weights, evicted=victim,
+               evict_mem_before=before, evict_mem_after=after,
+               evict_state_bytes=srv.store.nbytes(victim), migrated=moved,
+               exports=st.exports, imports=other.stats.imports)
+    for did in list(srv.docs):
+        srv.close_document(did)
+    if os.listdir(spill):
+        raise AssertionError(f"tiered: closing every document left {os.listdir(spill)}")
+    os.rmdir(spill)
+    return out
+
+
+def async_phase(params, cfg, docs: dict, stream, n_new: int = 8) -> dict:
+    """One client thread per document through ``AsyncBatchServer``
+    (``max_batch_delay_ms=8``) over a budgeted server: each client subscribes
+    to its document's suggestions, then per round of the stream submits its
+    share and waits for a fresh suggestion. Final tokens and every
+    suggestion must equal a sequential ``BatchServer`` fed each document's
+    requests in the same order; streamed token events must reassemble into
+    each streamed continuation."""
+    import tempfile
+    import threading
+
+    from repro_torch.serving.async_server import AsyncBatchServer
+    from repro_torch.serving.batch_server import BatchServer
+
+    budget, host_budget = tiered_budgets(cfg)
+    spill = tempfile.mkdtemp(prefix="chip-smoke-cold-")
+    srv = BatchServer(params, cfg, max_batch=2, device_budget_bytes=budget,
+                      host_budget_bytes=host_budget, spill_dir=spill, device=DEVICE)
+    got = {did: [] for did in docs}
+    errors = []
+
+    def client(asrv, did, sub):
+        try:
+            for batch in stream:
+                for d, e in batch:
+                    if d == did:
+                        asrv.submit_edit(did, e)
+                got[did].append(asrv.suggest(did, n_new).result(600))
+        except BaseException as exc:  # reported on the main thread
+            errors.append((did, exc))
+
+    t0 = time.perf_counter()
+    with AsyncBatchServer(srv, max_batch_delay_ms=8.0) as asrv:
+        for t in [asrv.open_document(d, list(v)) for d, v in docs.items()]:
+            t.result(600)
+        subs = {did: asrv.subscribe(did, n_new) for did in docs}
+        threads = [threading.Thread(target=client, args=(asrv, did, subs[did])) for did in docs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        final = {did: asrv.tokens(did).result(600) for did in docs}
+        astats = asrv.stats
+    wall_s = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"async: client {errors[0][0]} failed: {errors[0][1]!r}")
+    streamed = {}
+    for did, sub in subs.items():
+        toks, n = {}, 0
+        while True:
+            kind, serial, *rest = sub.get(timeout=5.0)
+            if kind == "closed":
+                break
+            if kind == "token":
+                toks.setdefault(serial, []).append(rest[1])
+            elif toks.get(serial) != list(rest[0]):
+                raise AssertionError(f"async: {did} streamed tokens differ from refresh {serial}")
+            else:
+                n += 1
+        streamed[did] = n
+    # the sequential replay
+    seq = BatchServer(params, cfg, device=DEVICE)
+    for did, toks in docs.items():
+        seq.open_document(did, list(toks))
+        for r, batch in enumerate(stream):
+            for d, e in batch:
+                if d == did:
+                    seq.submit_edit(did, e)
+            want = seq.suggest(did, n_new)
+            if not np.array_equal(got[did][r], want):
+                raise AssertionError(f"async: {did} suggestion after round {r} differs "
+                                     f"from the sequential replay ({got[did][r]} vs {want})")
+        if not np.array_equal(final[did], seq.tokens(did)):
+            raise AssertionError(f"async: {did} tokens differ from the sequential replay")
+    if astats.requests_failed:
+        raise AssertionError(f"async: {astats.requests_failed} requests failed")
+    if min(streamed.values()) < 1:
+        raise AssertionError("async: a subscription streamed no suggestion")
+    st = srv.stats
+    lat = {name: dict(count=h.count, p50_ms=h.p50, p99_ms=h.p99, max_ms=h.max_ms)
+           for name, h in (("edit_latency", st.edit_latency),
+                           ("suggest_latency", st.suggest_latency))}
+    for did in list(srv.docs):
+        srv.close_document(did)
+    os.rmdir(spill)
+    return dict(wall_s=wall_s, rounds=astats.rounds, deadline_rounds=astats.deadline_rounds,
+                full_rounds=astats.full_rounds, edits=astats.admitted_edits,
+                edits_per_round=astats.mean_edits_per_round,
+                suggests=astats.admitted_suggests, streamed_suggestions=streamed,
+                evictions=st.evictions, spills=st.spills, rehydrations=st.rehydrations,
+                hot_hit_rate=st.hot_hit_rate, edit_dispatches=st.batch_steps, **lat)
+
+
+def fleet_phase(params, cfg, docs: dict, stream, n_new: int = 8) -> dict:
+    """``FleetRouter`` with 2 replica workers on the card (the full config,
+    seed 0) and the four documents. The 256-token document runs alone
+    through its round-0 edits (a grow), migrates to the other replica, then
+    takes 16 inserts at one position (a defrag); after each stretch its
+    logits are bitwise equal to an in-process server fed the same edits one
+    at a time, and its suggestions token-exact. Then the other documents'
+    round-0 edits, a checkpoint, a hard kill of one replica with edits in
+    flight: every document resumes token-exact on the survivor. The fleet
+    closes leaving no child process and no cold file."""
+    import tempfile
+
+    from repro_torch.core.edits import Edit, apply_edit
+    from repro_torch.serving.batch_server import BatchServer
+    from repro_torch.serving.fleet import FleetRouter, RemoteOpError, ReplicaDiedError
+
+    from repro_torch.configs import get_config
+
+    smoke = cfg != get_config("vq-opt-125m")  # the workers build ``cfg`` too
+    if get_config("vq-opt-125m", smoke=smoke) != cfg:
+        raise ValueError("fleet: the workers build vq-opt-125m or its smoke config only")
+    wait = 600.0
+    mig = "d256"
+    refs = {d: list(v) for d, v in docs.items()}
+    oracle = BatchServer(params, cfg, device=DEVICE)
+    oracle.open_document(mig, refs[mig])
+    cold = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
+    t0 = time.perf_counter()
+    fleet = FleetRouter(2, smoke=smoke, seed=0, cold_dir=cold, device=DEVICE,
+                        max_batch_delay_ms=5.0)
+    boot_s = time.perf_counter() - t0
+    out = dict(boot_s=boot_s, worker_boot_s=[r.boot_s for r in fleet.replicas])
+    try:
+        fleet.open_document(mig, refs[mig]).result(wait)
+        for t in [fleet.open_document(d, refs[d]) for d in docs if d != mig]:
+            t.result(wait)
+        out["placement"] = {d: fleet.owner_of(d) for d in docs}
+
+        def edit_alone(e):
+            fleet.submit_edit(mig, e).result(wait)
+            oracle.submit_edit(mig, e)
+            oracle.flush()
+            refs[mig] = apply_edit(refs[mig], e)
+
+        def same_as_oracle(when: str) -> None:
+            if not np.array_equal(fleet.logits(mig).result(wait), oracle.logits(mig)):
+                raise AssertionError(f"fleet: {mig} logits differ from the oracle {when}")
+            got, want = fleet.suggest(mig, n_new).result(wait), oracle.suggest(mig, n_new)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"fleet: {mig} suggestion differs {when} ({got} vs {want})")
+
+        for d, e in stream[0]:
+            if d == mig:
+                edit_alone(e)
+        if oracle.stats.grows < 1:
+            raise AssertionError("fleet: the edits before the move forced no grow")
+        same_as_oracle("before the move")
+        src = fleet.owner_of(mig)
+        t1 = time.perf_counter()
+        fleet.migrate(mig, 1 - src)
+        out["migrate_ms"] = (time.perf_counter() - t1) * 1e3
+        same_as_oracle("right after the move")
+        rng = np.random.default_rng(5)
+        at = len(refs[mig]) // 2
+        defrags = oracle.stats.defrags
+        for _ in range(16):
+            edit_alone(Edit("insert", at, int(rng.integers(cfg.vocab))))
+        if oracle.stats.defrags <= defrags:
+            raise AssertionError("fleet: the inserts after the move forced no defrag")
+        same_as_oracle("after the move's defrag")
+        # the other documents' round-0 share, all in flight together
+        tickets = []
+        for d, e in stream[0]:
+            if d != mig:
+                tickets.append(fleet.submit_edit(d, e))
+                refs[d] = apply_edit(refs[d], e)
+        for t in tickets:
+            t.result(wait)
+        for d in docs:
+            if list(fleet.tokens(d).result(wait)) != refs[d]:
+                raise AssertionError(f"fleet: {d} tokens differ from the host replay")
+        agg = fleet.stats(wait)
+        per = agg["per_replica"]
+        for name in ("edits_applied", "hot_hits", "state_touches", "exports", "imports",
+                     "docs", "closes"):
+            if agg[name] != sum(s["batch"][name] for s in per):
+                raise AssertionError(f"fleet: the router's {name} is not the replicas' sum")
+        n_acked = oracle.stats.edits_applied + len(tickets)
+        if agg["edits_applied"] != n_acked or agg["exports"] != 1 or agg["imports"] != 1:
+            raise AssertionError(f"fleet: {agg['edits_applied']} edits applied for {n_acked} "
+                                 f"acked, {agg['exports']} exports, {agg['imports']} imports")
+        out["stats"] = {k: agg[k] for k in (
+            "edits_applied", "docs_open", "rounds", "deadline_rounds", "full_rounds",
+            "hot_hit_rate", "exports", "imports", "edit_latency", "suggest_latency")}
+        out["stats"]["router"] = agg["router"]
+        out["stats"]["grows"] = [s["batch"]["grows"] for s in per]
+        out["stats"]["defrags"] = [s["batch"]["defrags"] for s in per]
+        # failover: a checkpoint, edits in flight, a hard kill
+        fleet.checkpoint(wait)
+        victim = fleet.owner_of(mig)
+        lost = [d for d in docs if fleet.owner_of(d) == victim]
+        inflight = []
+        for i, d in enumerate(lost):
+            pos, tok = i, int(rng.integers(cfg.vocab))
+            inflight.append((d, pos, tok, fleet.submit_replace(d, pos, tok)))
+        t1 = time.perf_counter()
+        fleet.kill_replica(victim)
+        out["failover_ms"] = (time.perf_counter() - t1) * 1e3
+        replayed = 0
+        for d, pos, tok, t in inflight:
+            try:
+                t.result(wait)
+            except (ReplicaDiedError, RemoteOpError):
+                fleet.submit_replace(d, pos, tok).result(wait)
+                replayed += 1
+            refs[d][pos] = tok
+        for d in docs:
+            if fleet.owner_of(d) != 1 - victim:
+                raise AssertionError(f"fleet: {d} is not on the survivor")
+            tok = int(rng.integers(cfg.vocab))
+            fleet.submit_insert(d, 2, tok).result(wait)
+            refs[d].insert(2, tok)
+            if list(fleet.tokens(d).result(wait)) != refs[d]:
+                raise AssertionError(f"fleet: {d} tokens differ after the failover")
+        out.update(failed_over=lost, replayed=replayed, router=dataclasses.asdict(fleet.stats_fleet))
+    finally:
+        fleet.close_fleet()
+    alive = [r.proc.pid for r in fleet.replicas if r.proc.poll() is None]
+    if alive or os.listdir(cold):
+        raise AssertionError(f"fleet: close left processes {alive} and files {os.listdir(cold)}")
+    os.rmdir(cold)
+    return out
 
 
 SWEEPS = ("delta_gate", "vq_assign", "patch", "gated_attention")
@@ -1159,6 +1597,21 @@ def main() -> int:
     t0 = time.perf_counter()
     sug = suggest_phase(params, cfg, docs, stream)
     emit("suggest", seconds=time.perf_counter() - t0, nvidia_smi=smi, **sug)
+
+    # ---- 11. tiered: the state store under device and host budgets
+    t0 = time.perf_counter()
+    tier = tiered_phase(params, cfg, docs, stream[:3])
+    emit("tiered", seconds=time.perf_counter() - t0, nvidia_smi=smi, **tier)
+
+    # ---- 12. async: concurrent clients through the deadline batcher
+    t0 = time.perf_counter()
+    asy = async_phase(params, cfg, docs, stream[:2])
+    emit("async", seconds=time.perf_counter() - t0, nvidia_smi=smi, **asy)
+
+    # ---- 13. fleet: two replica workers on the card, migration, failover
+    t0 = time.perf_counter()
+    flt = fleet_phase(params, cfg, docs, stream)
+    emit("fleet", seconds=time.perf_counter() - t0, nvidia_smi=smi, **flt)
 
     # ---- summary
     c72 = next(f for f in fused if f["C"] == 72 and f["mask"] == "random")

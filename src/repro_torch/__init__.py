@@ -10,15 +10,18 @@ Entry points (``BatchServer``, ``BatchedJitEngine``, ``JitIncrementalEngine``,
 without a GPU that default raises instead of falling back to the CPU. Tests
 pass ``device="cpu"``, where every kernel wrapper runs its plain PyTorch
 version.
+
+Importing the package imports nothing heavy (``torch`` loads with the
+modules that use it), so a fleet worker can claim its RPC pipe first.
 """
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device) -> torch.device:
+def resolve_device(device):
     """The ``torch.device`` an entry point runs on. ``"cuda"`` without a
     visible GPU is an error, never a silent move to the CPU."""
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -22,9 +22,21 @@ refresh) and ``touched_from`` (since the last full forward) watermarks
 record the earliest edited position id; a continuation that would run past
 the position pool triggers a defrag and one retry.
 
-Not ported yet (later slices): the serving mesh, the warm/cold tiers and
-budgets, the persistent compilation cache, the async front end, and
-``checkpoint_document`` / ``export_document`` / ``import_document``.
+Document state is a tiered, budgeted resource (``serving.state_store``):
+with ``device_budget_bytes=`` the served documents may exceed device memory
+— least-recently-touched documents evict to a host-RAM snapshot (warm) and,
+past ``host_budget_bytes=``, to disk (cold, under ``spill_dir``), then
+rehydrate bit-exactly on next touch (a re-upload, never a recompute).
+``pin`` / ``unpin`` exempt documents from eviction; suggestion decode caches
+count toward the budget as soft state. ``checkpoint_document``,
+``export_document`` and ``import_document`` move a document between
+servers (processes) bit-exactly: the snapshot carries the state, the
+allocator ids, the host mirrors and the slot layout verbatim. The async
+front end (``serving.async_server``) records per-request latencies in
+``edit_latency`` / ``suggest_latency``.
+
+Not ported yet (later slices): the serving mesh and the persistent
+compilation cache.
 
 Host mirrors are copied to the device with ``torch.tensor`` (never
 ``torch.from_numpy``, which would share storage with a mirror the next take
@@ -32,16 +44,19 @@ mutates). The one host read per dispatch is the overflow vector.
 """
 from __future__ import annotations
 
+import os
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
-
-import time
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint.store import (
+    restore_serving_document, save_serving_document,
+)
 from repro_torch.common.bucketing import capacity_class, next_pow2
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.edits import Edit
@@ -51,7 +66,8 @@ from repro_torch.serving.batch_engine import (
 )
 from repro_torch.models.transformer import params_from_numpy
 from repro_torch.serving.jit_engine import (
-    OP_DELETE, OP_INSERT, OP_REPLACE, JitState, state_nbytes_for,
+    OP_DELETE, OP_INSERT, OP_REPLACE, JitState, state_from_host,
+    state_nbytes_for, state_to_host,
 )
 from repro_torch.serving.latency import LatencyStats
 from repro_torch.serving.state_store import StateStore
@@ -76,10 +92,6 @@ class BatchStats:
     device_defrags: int = 0  # defrags served by gather_slots + full_forward
     device_grows: int = 0  # grows served by pad_state (no re-ingest)
     traced_shapes: int = 0  # distinct step shapes seen (ingest, edit, pad)
-    closes: int = 0  # close_document calls (docs stays = documents opened)
-    bytes_hot: int = 0  # device-resident document states
-    bytes_suggest: int = 0  # device-resident suggestion decode caches (soft)
-    docs_hot: int = 0
     suggest_refreshes: int = 0  # suggestion recomputes served
     suggest_invalidations: int = 0  # fresh suggestions staled by newer edits
     suggest_cached_hits: int = 0  # suggestions served from the cached
@@ -87,11 +99,42 @@ class BatchStats:
     suggest_headroom_defrags: int = 0  # refreshes that ran out of position
     # ids past the document (PositionHeadroomError), defragged and retried
     # host time of each real refresh, ending at the continuation's host read
+    refresh_latency: LatencyStats = field(default_factory=LatencyStats)
+    # ---- latency SLOs: per-request admission-to-completion histograms,
+    # recorded by the async front end (serving.async_server)
+    edit_latency: LatencyStats = field(default_factory=LatencyStats)
     suggest_latency: LatencyStats = field(default_factory=LatencyStats)
+    # ---- tiered state residency (serving.state_store): the byte and doc
+    # counters are kept by the StateStore and reconcile exactly with a
+    # recount of the underlying objects
+    closes: int = 0  # close_document calls (docs stays = documents opened)
+    bytes_hot: int = 0  # device-resident document states
+    bytes_warm: int = 0  # host-RAM snapshots
+    bytes_cold: int = 0  # on-disk spills
+    bytes_suggest: int = 0  # device-resident suggestion decode caches (soft)
+    docs_hot: int = 0
+    docs_warm: int = 0
+    docs_cold: int = 0
+    evictions: int = 0  # hot -> warm demotions
+    spills: int = 0  # warm -> cold demotions
+    rehydrations: int = 0  # warm/cold -> hot re-uploads (bit-exact)
+    rollback_rebuilds: int = 0  # void -> hot full-forward rebuilds (the
+    # rollback corner: a mid-take re-ingest consumed the pre-take copy)
+    state_touches: int = 0  # device-state reads routed through the store
+    hot_hits: int = 0  # touches served without a rehydration or rebuild
+    # ---- cross-process migration (fleet serving)
+    exports: int = 0  # export_document calls
+    imports: int = 0  # import_document calls
 
     @property
     def mean_batch(self) -> float:
         return self.batched_docs / max(self.batch_steps, 1)
+
+    @property
+    def hot_hit_rate(self) -> float:
+        """Fraction of device-state touches served from the hot tier; 1.0
+        when the budget never forced a rehydration."""
+        return self.hot_hits / max(self.state_touches, 1)
 
 
 @dataclass
@@ -105,8 +148,10 @@ class _BatchDoc:
     n_cap: int
     row_capacity: int  # per-document R; doubles on overflow
     allocator: PositionAllocator  # sequence-ordered gapped position ids
-    state: Optional[JitState]  # device state at padded shape
+    state: Optional[JitState]  # device state at padded shape (None = evicted)
     state_epoch: int = 0  # bumped on every content-CHANGING state replacement
+    # (dispatch adoption, re-ingest) but NOT on rehydration, which re-uploads
+    # identical bits — the rollback path uses it to tell the two apart
     pending: deque = field(default_factory=deque)  # FIFO of (op, pos, tok)
     n_virtual: int = 0  # length after every queued edit applies
     # ---- suggestion serving
@@ -137,14 +182,21 @@ class BatchServer:
                  use_fused_kernel: bool = True,
                  delta_threshold: float = 0.0, capacity_class_step: int = 4,
                  device_grow: bool = True, device_defrag: bool = True,
-                 pos_pool: Optional[int] = None, device="cuda"):
+                 pos_pool: Optional[int] = None,
+                 device_budget_bytes: Optional[int] = None,
+                 host_budget_bytes: Optional[int] = None,
+                 spill_dir: Optional[str] = None, device="cuda"):
         """``use_fused_kernel`` (default on, as in the reference) routes each
         layer's patch + requantize through one ``fused_step`` kernel launch;
         ``use_patch_kernel`` (with the fused kernel off) routes only the
         column patch through one ``incr_patch`` launch; ``delta_threshold`` is the served tolerance (0.0 serves bit-exactly
         like the ungated engine); ``capacity_class_step`` spaces the document
         capacity classes; ``device_grow`` / ``device_defrag`` serve the
-        structural slow paths on the device instead of host re-ingests."""
+        structural slow paths on the device instead of host re-ingests.
+        ``device_budget_bytes`` / ``host_budget_bytes`` bound the hot and
+        warm tiers of the state store (None: unbounded; accounting is always
+        on) and ``spill_dir`` holds the cold tier (default: a fresh
+        temporary directory on first spill)."""
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if capacity_class_step < 2:
@@ -174,12 +226,22 @@ class BatchServer:
         self._shapes_seen: set = set()
         self.docs: dict[str, _BatchDoc] = {}
         self.stats = BatchStats()
-        self.store = StateStore(stats=self.stats)
         self._params = params
         self._sugg: Optional[SuggestionEngine] = None
         # streaming hook: when set, every REAL suggestion refresh calls
         # ``on_suggest_token(doc_id, serial, token)`` per decoded token
         self.on_suggest_token = None
+        # True while step() is inside its take/dispatch section: host mirrors
+        # of a peeled document run AHEAD of its device state there, so
+        # snapshots the store captures mid-round are flagged inconsistent
+        # (fine for in-process rehydration, refused by import_document)
+        self._in_round = False
+        self.store = StateStore(
+            docs=self.docs, stats=self.stats,
+            drop_suggest=self._drop_suggest_cache, reingest=self._reingest,
+            device_budget_bytes=device_budget_bytes,
+            host_budget_bytes=host_budget_bytes, spill_dir=spill_dir,
+            in_round=lambda: self._in_round, device=self.device)
 
     @property
     def suggester(self) -> SuggestionEngine:
@@ -197,6 +259,9 @@ class BatchServer:
         return self.suggester.stats
 
     def _drop_suggest_cache(self, doc_id: str) -> None:
+        """Release one document's suggestion decode cache (the store's
+        soft-state reclamation hook; the suggester's listener reports the
+        freed bytes back to the store)."""
         if self._sugg is not None:
             self._sugg.drop(doc_id)
 
@@ -302,7 +367,8 @@ class BatchServer:
                     self.stats.full_forwards += 1
 
     def close_document(self, doc_id: str) -> None:
-        """End a session: release the document's state and queue."""
+        """End a session: release the document's slots, allocator, state in
+        any tier, suggestion cache and queue (pending edits are discarded)."""
         doc = self.docs.pop(doc_id)  # KeyError for unknown ids
         self._drop_suggest_cache(doc_id)  # listener zeroes its byte account
         self.store.close(doc)
@@ -310,8 +376,26 @@ class BatchServer:
         doc.suggestion = None
         self.stats.closes += 1
 
+    def pin(self, doc_id: str) -> None:
+        """Exempt a document from eviction (rehydrating it now if needed, so
+        a pinned document is always dispatch-ready). Its suggestion decode
+        cache stays evictable — soft state."""
+        if doc_id not in self.docs:
+            raise KeyError(doc_id)
+        self.store.pin(doc_id)
+
+    def unpin(self, doc_id: str) -> None:
+        self.store.unpin(doc_id)
+
+    def evict(self, doc_id: str, tier: str = "warm") -> str:
+        """Force-demote a document's state to ``"warm"`` (host RAM) or
+        ``"cold"`` (disk); its next touch rehydrates it bit-exactly.
+        Returns the resulting tier."""
+        return self.store.demote(self.docs[doc_id], tier)
+
     def tier(self, doc_id: str) -> str:
-        """Residency tier of an open document (always "hot" so far)."""
+        """Residency tier of an open document: "hot", "warm", "cold" (or
+        "void" after the rollback corner, until the next touch)."""
         if doc_id not in self.docs:
             raise KeyError(doc_id)
         return self.store.tier(doc_id)
@@ -402,10 +486,23 @@ class BatchServer:
          doc.n_virtual, doc.invalid_from, doc.touched_from,
          doc.suggest_fresh) = snap
         doc.allocator.restore(alloc_ids)
-        # a mid-take grow/defrag replaced the device state: re-adopt the
-        # exact pre-take state the snapshot still references
-        if epoch != doc.state_epoch:
+        # Residency-aware and never raising (the except path restores many
+        # documents in a row). Three cases:
+        # 1. epoch unchanged — the state's content was never replaced (at
+        #    most evicted and/or rehydrated, both bit-preserving) and the
+        #    store's accounting already matches wherever it lives now;
+        # 2. a mid-take grow/defrag replaced the content, but the snapshot
+        #    still references the exact pre-take state — re-adopt it;
+        # 3. the document entered the take evicted (snapshot state None) and
+        #    a mid-take re-ingest consumed its warm/cold copy — the restored
+        #    mirrors are the only source of truth: mark it void, and the
+        #    next touch rebuilds it with a full forward.
+        if epoch == doc.state_epoch:
+            pass
+        elif state is not None:
             self.store.set_hot(doc, state)
+        else:
+            self.store.mark_void(doc)
 
     # ------------------------------------------------------------- scheduling
 
@@ -498,14 +595,13 @@ class BatchServer:
         takes = []  # (doc, kind, arrays, count)
         undone: dict[int, tuple] = {}  # id(doc) -> (doc, snapshot)
         applied = 0
+        self._in_round = True
         try:
             for d in ready:
-                snap = self._snapshot(d)
-                undone[id(d)] = (d, snap)
+                undone[id(d)] = (d, self._snapshot(d))
                 kind, arrays, count = self._take_bucket(d)
                 if count == 0:
-                    self._restore(d, snap)
-                    undone.pop(id(d))
+                    self._restore(d, undone.pop(id(d))[1])
                     continue
                 takes.append((d, kind, arrays, count))
             groups: dict[tuple, list] = {}
@@ -526,6 +622,8 @@ class BatchServer:
             for d, snap in undone.values():
                 self._restore(d, snap)
             raise
+        finally:
+            self._in_round = False
         self._refresh_suggestions()
         return applied
 
@@ -582,8 +680,12 @@ class BatchServer:
     def _reingest(self, doc: _BatchDoc) -> None:
         """Rebuild device state from the host mirrors (one full forward)."""
         eng = self.engine(self.C, self.R)
+        # admit the replacement up front (a grown buffer is bigger than the
+        # one it replaces; an evicted document brings wholly new bytes)
+        resident = (self.store.nbytes(doc.doc_id)
+                    if self.store.tier(doc.doc_id) == "hot" else 0)
         self.store.admit(max(state_nbytes_for(doc.n_cap, eng.L, eng.meta)
-                             - self.store.nbytes(doc.doc_id), 0),
+                             - resident, 0),
                          keep=frozenset((doc.doc_id,)))
         state = eng.full_forward(self._to_device(doc.tokens),
                                  self._to_device(doc.positions),
@@ -762,7 +864,7 @@ class BatchServer:
                 eng, doc.state, key=doc.doc_id, n_new=doc.suggest_n,
                 invalid_from=doc.invalid_from,
                 export_invalid_from=doc.touched_from, on_token=on_token)
-        self.stats.suggest_latency.record((time.perf_counter() - t0) * 1e3)
+        self.stats.refresh_latency.record((time.perf_counter() - t0) * 1e3)
         doc.suggestion = toks
         doc.suggest_fresh = True
         doc.invalid_from = None
@@ -790,3 +892,96 @@ class BatchServer:
         state = self.store.ensure_hot(doc)
         eng = self.engine(self.C, self.R)
         return eng.logits_at(state, doc.slots[-1]).cpu().numpy()
+
+    # ------------------------------------------------------------- migration
+
+    def checkpoint_document(self, doc_id: str, path: str) -> None:
+        """Write a flushed document's full serving snapshot to ``path``
+        (atomic) while keeping it open: the state, the allocator ids, the
+        host mirrors and the slot layout with its free-list order, which
+        bit-exact adoption must reproduce verbatim (attention reduces over
+        the slot axis). A warm/cold document is rehydrated first, so it
+        checkpoints the bits a hot one would."""
+        doc = self._flushed(doc_id)
+        # ensure_hot FIRST: it releases any cold holding, which may live at
+        # this very path when the store shares a fleet's cold directory
+        state = self.store.ensure_hot(doc)
+        save_serving_document(
+            path, state_to_host(state),
+            allocator_ids=doc.allocator.snapshot(),
+            mirrors={
+                "tokens": doc.tokens.copy(),
+                "valid": doc.valid.copy(),
+                "positions": doc.positions.copy(),
+                "slots": np.asarray(doc.slots, np.int32),
+                "free": np.asarray(doc.free, np.int32),
+            },
+            meta={
+                "doc_id": doc_id,
+                "row_capacity": int(doc.row_capacity),
+                "n_virtual": int(doc.n_virtual),
+                "suggest_n": int(doc.suggest_n),
+                "pos_pool": int(self.pos_pool),
+                "invalid_from": doc.invalid_from,
+                "touched_from": doc.touched_from,
+                "consistent": True,  # flushed and out of round by construction
+            })
+
+    def export_document(self, doc_id: str, path: str) -> None:
+        """Hand a document off for migration: checkpoint, then close. The
+        snapshot at ``path`` survives the close, and a peer's
+        ``import_document`` resumes the document bit-exactly."""
+        self.checkpoint_document(doc_id, path)
+        self.close_document(doc_id)
+        self.stats.exports += 1
+
+    def import_document(self, doc_id: str, path: str, *,
+                        remove: bool = True) -> None:
+        """Adopt a document from a serving snapshot (this package's or the
+        reference's: the npz layout is shared) — the receiving half of
+        migration and failover. A re-upload, never a recompute: slot buffer,
+        free-list order, allocator ids and state are restored verbatim, so
+        every later dispatch, logits read and suggestion refresh is
+        bitwise-identical to a server that never moved the document on the
+        same device. Snapshots marked ``consistent: False`` (captured
+        mid-round by an eviction) are refused."""
+        if doc_id in self.docs:
+            raise KeyError(f"document {doc_id!r} already open")
+        state_h, ids, mirrors, meta = restore_serving_document(path)
+        if not meta.get("consistent", True):
+            raise ValueError(
+                f"snapshot for {doc_id!r} is marked inconsistent (captured "
+                "mid-round); re-open the document from its tokens instead")
+        if meta.get("doc_id") not in (None, doc_id):
+            raise ValueError(
+                f"snapshot at {path} belongs to {meta['doc_id']!r}, "
+                f"not {doc_id!r}")
+        pool = meta.get("pos_pool")
+        if pool is not None and int(pool) != self.pos_pool:
+            raise ValueError(
+                f"snapshot position pool {pool} != server pool "
+                f"{self.pos_pool} — position ids would not be comparable")
+        tokens = np.array(mirrors["tokens"], np.int32, copy=True)
+        n_cap = int(tokens.shape[0])
+        eng = self.engine(self.C, self.R)
+        self.store.admit(state_nbytes_for(n_cap, eng.L, eng.meta))
+        alloc = PositionAllocator(1, self.pos_pool)
+        alloc.restore([int(i) for i in np.asarray(ids)])
+        doc = _BatchDoc(
+            doc_id=doc_id, tokens=tokens,
+            valid=np.array(mirrors["valid"], bool, copy=True),
+            positions=np.array(mirrors["positions"], np.int32, copy=True),
+            slots=[int(s) for s in mirrors["slots"]],
+            free=[int(s) for s in mirrors["free"]],
+            n_cap=n_cap, row_capacity=int(meta["row_capacity"]),
+            allocator=alloc, state=state_from_host(state_h, self.device),
+            n_virtual=int(meta.get("n_virtual", len(mirrors["slots"]))),
+            suggest_n=int(meta.get("suggest_n", 0)),
+            invalid_from=meta.get("invalid_from"),
+            touched_from=meta.get("touched_from"))
+        self.docs[doc_id] = doc
+        self.store.register(doc)
+        self.stats.docs += 1
+        self.stats.imports += 1
+        if remove:
+            os.remove(path)

@@ -119,6 +119,10 @@ class SuggestionEngine:
             return 0
         return sum(t.numel() * t.element_size() for t in _leaves(entry.caches))
 
+    def cached_keys(self) -> list:
+        """Keys with a persisted decode cache (leak tests, reconciliation)."""
+        return list(self._cache)
+
     def _notify(self, key, nbytes: int) -> None:
         if self._on_cache_bytes is not None:
             self._on_cache_bytes(key, nbytes)

@@ -1,5 +1,6 @@
 """``chip_smoke.py``'s arithmetic that needs no card: the work and bounds it
-states for ``gated_attention`` on each route and for ``delta_gate``."""
+states for ``gated_attention`` on each route and for ``delta_gate``, and the
+budgets of its tiered phase."""
 import sys
 from pathlib import Path
 
@@ -46,3 +47,19 @@ def test_delta_gate_bound_is_bytes_at_the_served_rows(r, nbytes, bound_us):
     assert got_bytes == nbytes and ops == 3 * r * 768
     ms, by = cs.bound(got_bytes, ops)
     assert by == "bytes" and abs(ms * 1e3 - bound_us) < 1e-5
+
+
+def test_tiered_budgets_hold_two_full_states_on_the_card_and_one_on_the_host():
+    """At the full VQ-OPT-125M config a 1024-capacity state is 229,745,668
+    bytes; the device budget holds two of them and not three (the rest is
+    room for one suggestion decode cache), the host budget one and not two."""
+    from repro_torch.configs.vq_opt_125m import config
+    from repro_torch.serving.jit_engine import state_nbytes_for_config
+
+    cfg = config()
+    per = state_nbytes_for_config(cfg, 1024)
+    assert per == 229_745_668
+    device, host = cs.tiered_budgets(cfg)
+    assert 2 * per <= device < 3 * per
+    assert per <= host < 2 * per
+    assert abs(device - 0.574e9) < 1e6  # ~0.46 GB of two states + half a third

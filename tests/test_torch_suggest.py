@@ -223,7 +223,7 @@ def test_server_stream_matches_reference_and_oracle(setup):
         for name in SUGGEST_COUNTERS:
             assert getattr(ours.stats, name) == getattr(ref.stats, name), name
         assert dataclasses.asdict(ours.suggest_stats) == dataclasses.asdict(ref.suggest_stats)
-        assert ours.stats.suggest_latency.count == ours.stats.suggest_refreshes
+        assert ours.stats.refresh_latency.count == ours.stats.suggest_refreshes
     tiny, big = servers[0][1], servers[1][1]
     assert tiny.stats.grows >= 1 and tiny.stats.defrags >= 1
     assert big.docs["h"].allocator.defrag_count >= 1  # the headroom path
