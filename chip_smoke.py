@@ -108,6 +108,21 @@ and exits non-zero):
                 closes leaving no child process and no cold file. Prints
                 the workers' boot seconds, the migration's and the
                 failover's ms and the router's stats.
+14. incremental — the paper's measurement path: the 4 documents opened in
+                the op-counting ``IncrementalServer`` on the card and the
+                serve stream applied as atomic edits in its order; each
+                edit's counted ops beside the dense from-scratch cost and
+                its host-clock ms (synchronized). Prints the totals, the
+                cumulative speedup, the per-edit ratio's median, min and
+                max, defrags and ms per edit (median, max). Then each
+                final state against the engine's own ``full_forward``
+                (codes equal but for near ties, top-two scores within
+                1e-4, which are counted; logits within 1e-3), the serve
+                phase's ``BatchServer`` slot codes and ``logits()``
+                against the same engine's full forward of its tokens and
+                positions, and the 256-token document's edits replayed in
+                step on a CPU twin: equal op counts, or a near tie at the
+                first diverging code (reported).
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line
 (``delta_gate`` at the threshold phase's most served r), and the last line
@@ -1412,6 +1427,150 @@ def fleet_phase(params, cfg, docs: dict, stream, n_new: int = 8) -> dict:
     return out
 
 
+# ------------------------------------------------------------ op counting
+
+NEAR_TIE = 1e-4  # top-two VQ scores this close may flip between two routes
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def engine_scores(eng, st, li: int, rows=None) -> torch.Tensor:
+    """The op-counting engine's VQ scores [n, hq, Q] at layer ``li`` of
+    ``st`` (its ``_codes_of`` before the argmax); ``rows`` picks and orders
+    the rows of a slot buffer, whose row of sequence rank i attends i + 1
+    columns."""
+    T = st.T[li] if rows is None else st.T[li][rows]
+    n = T.shape[0]
+    counts = torch.arange(1, n + 1, dtype=torch.float32, device=T.device)
+    return (T.reshape(n, eng.hq, eng.heads_per_vq, eng.Q).sum(2) / counts[:, None, None]
+            + eng.layers[li]["vq_bias"].to(T.device))
+
+
+class _Layers:
+    """A ``DocState``'s per-layer tensors as stacks, for ``engine_scores``."""
+
+    def __init__(self, state):
+        self.T = [l.T for l in state.layers]
+        self.codes = torch.stack([l.codes for l in state.layers]).cpu()
+
+
+def near_tie_flips(eng, a, b, what: str, rows_a=None, rows_b=None) -> int:
+    """0 when the codes of ``a`` and ``b`` (``_Layers`` or slot states read
+    at ``rows_*``) are equal. Otherwise every difference in the earliest
+    layer that has one must be a near tie (top-two scores within
+    ``NEAR_TIE`` on either side; later layers inherit the flip): returns
+    that layer's count of flips, else raises."""
+    ca = a.codes if rows_a is None else a.codes[:, rows_a].cpu()
+    cb = b.codes if rows_b is None else b.codes[:, rows_b].cpu()
+    diff = ca != cb  # [L, n, hq]
+    if not bool(diff.any()):
+        return 0
+    first = int(diff.flatten(1).any(-1).nonzero()[0])
+    near = torch.zeros_like(diff[first])
+    for st, rows in ((a, rows_a), (b, rows_b)):
+        top2 = engine_scores(eng, st, first, rows).topk(2, dim=-1).values.cpu()
+        near |= (top2[..., 0] - top2[..., 1]) <= NEAR_TIE
+    if bool((diff[first] & ~near).any()):
+        raise AssertionError(f"{what}: codes differ at layer {first} away from near ties")
+    return int(diff[first].sum())
+
+
+def incremental_phase(params, cfg, docs: dict, stream, srv, device=None,
+                      twin: str = "d256") -> dict:
+    """The paper's measurement path on ``device``: the documents opened in
+    an op-counting ``IncrementalServer`` and the stream applied as atomic
+    edits in its order, each edit's counted ops beside the dense
+    from-scratch cost and its host-clock ms (synchronized). Then every
+    document's final state against the engine's own ``full_forward``
+    (codes equal but for near ties, logits within 1e-3), the batch server
+    ``srv``'s slot codes and logits against the same engine's full forward
+    of its tokens and positions, and the ``twin`` document's edits replayed
+    in step on a CPU server: each edit's op count equal, or its first
+    diverging code a near tie (the twin then takes the device's state)."""
+    from repro_torch.core.edits import apply_edits
+    from repro_torch.serving.engine import IncrementalServer
+
+    device = device or DEVICE
+    server = IncrementalServer(params, cfg, device=device)
+    eng = server.engine
+    for did, toks in docs.items():
+        server.open_document(did, toks)
+    ops_open = server.stats.incremental_ops
+    cpu = IncrementalServer(params, cfg, device="cpu")
+    cpu.open_document(twin, docs[twin])
+    per_edit, twin_diverged = [], []
+    for batch in stream:
+        for did, e in batch:
+            sync(device)
+            t0 = time.perf_counter()
+            ops = server.apply_edit(did, e)
+            sync(device)
+            ms = (time.perf_counter() - t0) * 1e3
+            per_edit.append(dict(doc=did, op=e.op, ops=ops, ms=ms,
+                                 dense=server._dense_ops(server.docs[did].state.n)))
+            if did != twin:
+                continue
+            cpu_ops = cpu.apply_edit(did, e)
+            here, there = server.docs[did], cpu.docs[did]
+            if here.allocator.positions != there.allocator.positions:
+                raise AssertionError("incremental: the CPU twin's position ids differ")
+            flips = near_tie_flips(eng, _Layers(here.state), _Layers(there.state),
+                                   f"incremental: the CPU twin after edit {len(per_edit) - 1}")
+            if flips:
+                twin_diverged.append(dict(edit=len(per_edit) - 1, flips=flips,
+                                          ops=ops, cpu_ops=cpu_ops))
+                there.state = here.state.to("cpu")  # step on from the same state
+            elif cpu_ops != ops:
+                raise AssertionError(f"incremental: edit {len(per_edit) - 1} counted "
+                                     f"{ops} ops on {device} and {cpu_ops} on the CPU")
+    st = server.stats
+    ratios = [p["dense"] / max(p["ops"], 1) for p in per_edit]
+    ms = [p["ms"] for p in per_edit]
+
+    exact = {}
+    for did, toks in docs.items():
+        replay = apply_edits(toks, [e for batch in stream for d, e in batch if d == did])
+        state = server.docs[did].state
+        if list(state.tokens) != replay:
+            raise AssertionError(f"incremental: {did} tokens differ from the host replay")
+        full = eng.full_forward(state.tokens, state.positions)
+        flips = near_tie_flips(eng, _Layers(state), _Layers(full), f"incremental: {did}")
+        row = dict(n=state.n, flips=flips,
+                   max_abs_x_diff=float((state.xs[-1] - full.xs[-1]).abs().max()),
+                   logits_diff=float((eng.logits_at(state) - eng.logits_at(full)).abs().max()))
+        if not flips and row["logits_diff"] > 1e-3:
+            raise AssertionError(f"incremental: {did} logits differ by {row['logits_diff']}")
+        exact[did] = row
+
+    oracle = {}
+    for did in docs:
+        doc, slot_state = srv.docs[did], srv.state(did)
+        full = eng.full_forward(doc.seq_tokens(), doc.seq_positions())
+        slots = torch.as_tensor(doc.slots, device=slot_state.codes.device)
+        flips = near_tie_flips(eng, slot_state, _Layers(full), f"incremental: BatchServer {did}",
+                               rows_a=slots)
+        d = float(np.abs(srv.logits(did) - eng.logits_at(full).cpu().numpy()).max())
+        if not flips and d > 1e-3:
+            raise AssertionError(f"incremental: BatchServer {did} logits differ by {d}")
+        oracle[did] = dict(n=doc.n, flips=flips, logits_diff=d)
+
+    return dict(edits=len(per_edit), ops_open=ops_open,
+                ops_edits=sum(p["ops"] for p in per_edit),
+                dense_edits=sum(p["dense"] for p in per_edit),
+                incremental_ops=st.incremental_ops, full_ops_equiv=st.full_ops_equiv,
+                speedup=st.speedup, ratio_median=float(np.median(ratios)),
+                ratio_min=float(min(ratios)), ratio_max=float(max(ratios)),
+                defrags=st.defrags, ms_per_edit_median=float(np.median(ms)),
+                ms_per_edit_max=float(max(ms)), exactness=exact, batch_server_oracle=oracle,
+                cpu_twin=dict(doc=twin, edits=sum(p["doc"] == twin for p in per_edit),
+                              near_tie_divergences=twin_diverged),
+                per_edit=[[p["doc"], p["op"], p["ops"], p["dense"], round(p["ms"], 3)]
+                          for p in per_edit])
+
+
 SWEEPS = ("delta_gate", "vq_assign", "patch", "gated_attention")
 
 
@@ -1612,6 +1771,11 @@ def main() -> int:
     t0 = time.perf_counter()
     flt = fleet_phase(params, cfg, docs, stream)
     emit("fleet", seconds=time.perf_counter() - t0, nvidia_smi=smi, **flt)
+
+    # ---- 14. incremental: the paper's op-counting path, and the oracle
+    t0 = time.perf_counter()
+    inc = incremental_phase(params, cfg, docs, stream, srv)
+    emit("incremental", seconds=time.perf_counter() - t0, nvidia_smi=smi, **inc)
 
     # ---- summary
     c72 = next(f for f in fused if f["C"] == 72 and f["mask"] == "random")

@@ -1,5 +1,8 @@
-"""Serving launcher of the port — the multi-session demos of
-``repro/launch/serve.py`` over ``repro_torch``.
+"""Serving launcher of the port — the demos of ``repro/launch/serve.py``
+over ``repro_torch``.
+
+Single-document op-count demo (the paper's measurement; the default mode):
+  PYTHONPATH=src python -m repro_torch.launch.serve --doc-len 128 --edits 20
 
 Tiered store (more sessions than the device budget admits; evicted
 documents rehydrate bit-exactly on their next touch):
@@ -19,8 +22,7 @@ cross-replica migration mid-run):
 Everything runs on the card (``--device cuda``, the default) at the full
 VQ-OPT-125M width; ``--smoke`` takes the reduced config, and ``--device cpu``
 runs the plain PyTorch path. Weights are the port's seeded init (seed 0).
-The reference's default single-document mode (the NumPy
-``IncrementalServer``) and ``--ckpt`` are not ported yet: they raise.
+``--ckpt`` is not ported yet: it raises.
 """
 from __future__ import annotations
 
@@ -34,6 +36,32 @@ from repro_torch.configs import get_config
 from repro_torch.core.edits import apply_edit, random_atomic_edit
 from repro_torch.data import SyntheticCorpus
 from repro_torch.models.transformer import init_params
+
+
+def run_single(args, cfg, params) -> None:
+    """One document through the op-counting ``IncrementalServer``: a seeded
+    stream of atomic edits, each with its counted ops beside the
+    from-scratch cost at the document's new length."""
+    from repro_torch.serving.engine import IncrementalServer
+
+    server = IncrementalServer(params, cfg, device=args.device)
+    corpus = SyntheticCorpus(vocab=cfg.vocab, seed=0)
+    doc = list(corpus.document(args.doc_len, 0))
+    server.open_document("doc", doc)
+    print(f"opened {len(doc)}-token document; streaming {args.edits} atomic edits")
+
+    rng = np.random.default_rng(0)
+    tokens = doc
+    for i in range(args.edits):
+        e = random_atomic_edit(rng, tokens, cfg.vocab)
+        ops = server.apply_edit("doc", e)
+        tokens = apply_edit(tokens, e)
+        dense = server._dense_ops(len(tokens))
+        print(f"edit {i:3d} {e.op:8s}@{e.pos:4d} ops={ops:>14,} "
+              f"(from-scratch {dense:>14,} -> {dense / max(ops, 1):6.1f}X)")
+    s = server.stats
+    print(f"\ntotals: edits={s.edits} defrags={s.defrags} "
+          f"cumulative speedup={s.speedup:.1f}X")
 
 
 def run_tiered(args, cfg, params) -> None:
@@ -224,11 +252,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--ckpt needs checkpoint.restore_pytree, which is not ported yet "
             "(ROADMAP Queue A item 10, training)")
-    if not (args.tiered or args.async_fleet or args.fleet):
-        raise NotImplementedError(
-            "the single-document op-count demo needs the NumPy "
-            "IncrementalServer, which is not ported yet (ROADMAP Queue A "
-            "item 7); pass --tiered, --async-fleet or --fleet N")
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.fleet:
         run_fleet(args, cfg)  # replicas build their own weights (same seed)
@@ -237,8 +260,10 @@ def main(argv=None):
                          device="cpu")
     if args.tiered:
         run_tiered(args, cfg, params)
-    else:
+    elif args.async_fleet:
         run_async_fleet(args, cfg, params)
+    else:
+        run_single(args, cfg, params)
 
 
 if __name__ == "__main__":

@@ -14,6 +14,7 @@ _EXPORTS = {
     "PositionHeadroomError": "suggest", "SuggestionEngine": "suggest",
     "SuggestStats": "suggest", "oracle_suggestion": "suggest",
     "DeviceBudgetError": "state_store", "StateStore": "state_store",
+    "IncrementalServer": "engine", "ServerStats": "engine",
 }
 __all__ = sorted(_EXPORTS)
 

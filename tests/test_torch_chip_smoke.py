@@ -63,3 +63,45 @@ def test_tiered_budgets_hold_two_full_states_on_the_card_and_one_on_the_host():
     assert 2 * per <= device < 3 * per
     assert per <= host < 2 * per
     assert abs(device - 0.574e9) < 1e6  # ~0.46 GB of two states + half a third
+
+
+def test_incremental_phase_gates_pass_on_the_cpu():
+    """Phase 14 on the smoke config with ``device="cpu"``: short documents
+    named like ``DOC_LENGTHS``, the serve stream's form (its inserts run the
+    1000-token document's gap out: a defrag) and a CPU ``BatchServer``
+    served with it as the second oracle's subject. Every gate passes and
+    every emitted field is there."""
+    import numpy as np
+
+    from repro_torch.configs.vq_opt_125m import smoke_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.batch_server import BatchServer
+
+    cfg = smoke_config()
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    lens = dict(zip(cs.DOC_LENGTHS, (16, 20, 30, 40)))
+    rng = np.random.default_rng(0)
+    docs = {did: [int(t) for t in rng.integers(0, cfg.vocab, n)] for did, n in lens.items()}
+    stream = cs.make_stream(cfg.vocab, rounds=3, per_doc=3, lens=lens)
+    srv = BatchServer(params, cfg, device="cpu")
+    srv.open_documents({k: list(v) for k, v in docs.items()})
+    for batch in stream:
+        for did, e in batch:
+            srv.submit_edit(did, e)
+        srv.flush()
+    out = cs.incremental_phase(params, cfg, docs, stream, srv, device="cpu")
+    n_edits = sum(len(b) for b in stream)
+    assert out["edits"] == n_edits == len(out["per_edit"])
+    assert out["defrags"] >= 1
+    assert out["incremental_ops"] == out["ops_open"] + out["ops_edits"]
+    assert out["speedup"] == out["full_ops_equiv"] / out["incremental_ops"]
+    assert 0 < out["ratio_min"] <= out["ratio_median"] <= out["ratio_max"]
+    assert out["ms_per_edit_median"] <= out["ms_per_edit_max"]
+    assert set(out["exactness"]) == set(out["batch_server_oracle"]) == set(docs)
+    for row in out["exactness"].values():
+        assert set(row) == {"n", "flips", "max_abs_x_diff", "logits_diff"}
+        assert row["flips"] or row["logits_diff"] <= 1e-3
+    twin = out["cpu_twin"]
+    assert twin["doc"] == "d256" and twin["edits"] == sum(
+        d == "d256" for b in stream for d, _ in b)
+    assert twin["near_tie_divergences"] == []  # the twin is the same CPU here

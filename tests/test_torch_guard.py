@@ -48,3 +48,22 @@ def test_server_without_device_does_not_run_on_cpu():
                          device="cpu")
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         BatchServer(params, cfg)
+
+
+@pytest.mark.parametrize("entry", ["IncrementalServer", "IncrementalEngine"])
+def test_op_counting_engine_without_device_does_not_run_on_cpu(entry):
+    """The op-counting server and its engine default to the card too."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from repro_torch.configs.vq_opt_125m import smoke_config
+    from repro_torch.core.incremental import IncrementalEngine
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import IncrementalServer
+
+    cfg = smoke_config()
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    cls = {"IncrementalServer": IncrementalServer,
+           "IncrementalEngine": IncrementalEngine}[entry]
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        cls(params, cfg)

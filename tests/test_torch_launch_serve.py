@@ -1,6 +1,8 @@
-"""``python -m repro_torch.launch.serve`` on the CPU: the tiered, async and
-fleet demos run end to end with ``--smoke --device cpu``, and the modes
-that are not ported yet raise with the ROADMAP item that owns them."""
+"""``python -m repro_torch.launch.serve`` on the CPU: the default
+single-document op-count mode prints the reference's lines, the tiered,
+async and fleet demos run end to end with ``--smoke --device cpu``, and
+``--ckpt``, not ported yet, raises with the ROADMAP item that owns it."""
+import argparse
 import re
 
 import pytest
@@ -44,8 +46,33 @@ def test_fleet_demo_migrates(capsys):
     assert table["edits applied"] == "6" and table["documents open"] == "3"
 
 
-@pytest.mark.parametrize("argv,item", [([], "item 7"),
-                                       (["--tiered", "--ckpt", "x.npz"], "item 10")])
+def test_single_document_mode_prints_the_references_lines(capsys):
+    """``run_single`` of both packages on the same smoke weights (the
+    reference's at PRNGKey(1), the port's their numpy copy), ``--doc-len 32
+    --edits 5``: every printed line is equal — the document, the edits,
+    their op counts, the dense costs, the ratios and the totals."""
+    from _torch_parity import smoke_params
+    from repro.launch import serve as ref_serve
+
+    from repro_torch.configs.vq_opt_125m import smoke_config
+
+    cfg_ref, params, np_params = smoke_params()
+    args = argparse.Namespace(doc_len=32, edits=5, device="cpu")
+    ref_serve.run_single(args, cfg_ref, params)
+    ref_out = capsys.readouterr().out
+    serve.run_single(args, smoke_config(), np_params)
+    out = capsys.readouterr().out
+    assert out.splitlines() == ref_out.splitlines()
+    assert out.count("ops=") == 5 and "totals: edits=5" in out
+
+
+def test_single_document_mode_is_the_default(capsys):
+    out = _run(capsys, "--doc-len", "24", "--edits", "3")
+    assert out.startswith("opened 24-token document; streaming 3 atomic edits")
+    assert "totals: edits=3 defrags=0" in out
+
+
+@pytest.mark.parametrize("argv,item", [(["--tiered", "--ckpt", "x.npz"], "item 10")])
 def test_modes_not_ported_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         serve.main(["--smoke", "--device", "cpu", *argv])
