@@ -37,7 +37,7 @@ and exits non-zero):
                 launch 12 times per edit dispatch; a census of the (B, n, C)
                 shapes its calls ran at (also in the profiled rounds).
 5. parity     — the same stream through ``use_fused_kernel=False``: equal
-                tokens, counters and codes, logits within 1e-3 (a code may
+                tokens, counters and codes, logits within 3e-4 (a code may
                 differ only at a near-tie, top-two scores within 1e-5).
 6. threshold  — the same stream at ``delta_threshold=1.0``: exact tokens,
                 ``delta_gate`` launched, a census of the row counts r it
@@ -47,7 +47,7 @@ and exits non-zero):
 7. patch      — the serve stream through ``use_fused_kernel=False,
                 use_patch_kernel=True``: tokens and counters equal the
                 fused server's, codes equal except at near-ties, logits
-                within 1e-3, 12 ``incr_patch`` launches per edit dispatch;
+                within 3e-4, 12 ``incr_patch`` launches per edit dispatch;
                 then the profile phase's round of edits under torch.profiler
                 (``incr_patch`` device time and launches).
 8. profile    — one more round of edits on the served fleet under
@@ -55,7 +55,7 @@ and exits non-zero):
                 kernels that take it.
 9. forward    — ``models.transformer.forward`` on the 4 documents padded to
                 a [4, 1024] batch with their sampled position ids: each
-                document's last-row logits within 1e-3 of the engine's
+                document's last-row logits within 3e-4 of the engine's
                 ``full_forward`` + ``logits_at`` (unless a VQ code flipped
                 at a near-tie), 12 ``gated_attention`` and 12 ``vq_assign``
                 launches per call, ms per call and tokens/s; then one call
@@ -96,7 +96,8 @@ and exits non-zero):
                 document's requests in order, and streamed token events
                 reassemble into each streamed continuation. Prints edit and
                 suggestion latency (p50, p99, max) and edits per round.
-13. fleet     — ``FleetRouter`` with 2 replica workers on the card (full
+13. fleet     — ``FleetRouter`` with 2 replica workers on the card, or one
+                a card on a machine with two or more (full
                 width, seed 0) and the 4 documents: the 256-token document
                 alone takes its round-0 edits (a grow), migrates, takes 16
                 inserts at one position (a defrag); its logits are bitwise
@@ -117,12 +118,29 @@ and exits non-zero):
                 max, defrags and ms per edit (median, max). Then each
                 final state against the engine's own ``full_forward``
                 (codes equal but for near ties, top-two scores within
-                1e-4, which are counted; logits within 1e-3), the serve
+                1e-4, which are counted; logits within 3e-4 and the last
+                layer's states within 5e-5 where no code flipped), the serve
                 phase's ``BatchServer`` slot codes and ``logits()``
                 against the same engine's full forward of its tokens and
                 positions, and the 256-token document's edits replayed in
                 step on a CPU twin: equal op counts, or a near tie at the
                 first diverging code (reported).
+15. mesh      — the serve stream with an 8-token subscription on the
+                256-token document through ``BatchServer(mesh=...,
+                max_batch=8)``: k = 2 blocks on the one card, or one block
+                a card on 2 or 4 cards. Against a single-device server on
+                the same stream: tokens equal (and the host replay),
+                ``edits_applied`` equal, slot codes equal but for counted
+                near ties (top-two within 1e-4), logits within 3e-4 where
+                none flipped, the suggestion equals the oracle's,
+                ``sharded_dispatches`` > 0, 12 × k ``fused_step`` launches
+                an edit dispatch, one weight replica per distinct device.
+                Then a one-entry mesh is bitwise the ``device="cuda"``
+                server (every state leaf, ``logits()``, the suggestion).
+                Prints the census of block shapes (B/k, n, C), the mean
+                shard imbalance, state moves between devices, edits/s for
+                both servers (host clock; host-bound, no claim), and peak
+                memory per device beside the weight replicas' bytes.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line
 (``delta_gate`` at the threshold phase's most served r), and the last line
@@ -130,8 +148,9 @@ Then the card's name and power limit, one ``{"kernels": [...]}`` line
 kernels line come from the path that runs each kernel (serve for
 ``fused_step``, threshold for ``delta_gate``, forward for
 ``gated_attention``, the suggest flushes for ``vq_assign``, patch for
-``incr_patch``), with the counters set to 0 just before that path; launches
-made to compare or time a kernel do not count. Exits non-zero without a GPU
+``incr_patch``; ``fused_step``'s ``mesh_launches`` from the mesh phase),
+with the counters set to 0 just before that path; launches made to compare
+or time a kernel do not count. Exits non-zero without a GPU
 and outside a checkout of the repo.
 
 ``--sweep`` runs phases 1 and 2, then times the launch floor and
@@ -289,7 +308,7 @@ def engine_mask(gen, B: int, n: int, C: int, lengths=(256, 300, 700, 1000)):
 def check_fused_step(ops, ref, gen, C: int, B=4, n=1024, H=12, dh=64, Q=64, hq=2,
                      causal: bool = False):
     """``fused_patch_assign_batched`` against the plain version: T within
-    1e-4 (rtol 1e-5), codes equal away from near-ties, fully masked rows
+    2e-5 (rtol 1e-5), codes equal away from near-ties, fully masked rows
     bitwise ``T_base`` (sign bits of -0.0 included). The mask is random
     (~38% live; every 7th row and, for B > 1, the last document dead) or,
     with ``causal``, the engine's."""
@@ -314,8 +333,8 @@ def check_fused_step(ops, ref, gen, C: int, B=4, n=1024, H=12, dh=64, Q=64, hq=2
     T_p, codes_p = ref.fused_patch_assign_ref(*args)
     torch.cuda.synchronize()
     err = float((T_k - T_p).abs().max())
-    if not torch.allclose(T_k, T_p, atol=1e-4, rtol=1e-5):
-        raise AssertionError(f"fused_step C={C}: T differs by {err} (atol 1e-4, rtol 1e-5)")
+    if not torch.allclose(T_k, T_p, atol=2e-5, rtol=1e-5):
+        raise AssertionError(f"fused_step C={C}: T differs by {err} (atol 2e-5, rtol 1e-5)")
     s = T_p.reshape(B, n, hq, g, Q).sum(3) / counts[..., None, None] + vq_bias
     top2 = s.topk(2, dim=-1).values
     near = (top2[..., 0] - top2[..., 1]) <= 1e-5
@@ -708,12 +727,13 @@ def profile_round(srv, batch, names=("fused_step", "incr_patch")) -> dict:
                 top_kernels=prof["top_kernels"])
 
 
-def code_diff(srv_a, srv_b, did: str, vq_bias) -> int:
+def code_diff(srv_a, srv_b, did: str, vq_bias, tie: float = 1e-5) -> int:
     """0 when the two servers' codes for ``did`` are equal. Otherwise the
     earliest layer with a difference must differ only at near-ties (the
-    two paths' top-two scores within 1e-5; later layers inherit the
+    two paths' top-two scores within ``tie``; later layers inherit the
     flip) — returns that layer's flip count — else raises."""
     sa, sb = srv_a.state(did), srv_b.state(did)
+    sb = type(sb)(*(leaf.to(sa.x.device) for leaf in sb))
     diff = (sa.codes != sb.codes) & sa.valid[None, :, None]
     if not bool(diff.any()):
         return 0
@@ -727,7 +747,7 @@ def code_diff(srv_a, srv_b, did: str, vq_bias) -> int:
         s = (st.T[first].reshape(n, hq, -1, Q).sum(2) / counts[:, None, None]
              + vq_bias[first])
         top2 = s.topk(2, dim=-1).values
-        near |= (top2[..., 0] - top2[..., 1]) <= 1e-5
+        near |= (top2[..., 0] - top2[..., 1]) <= tie
     if bool((diff[first] & ~near).any()):
         raise AssertionError(f"{did}: codes differ at layer {first} away from near-ties")
     return int(diff[first].sum())
@@ -833,7 +853,7 @@ def padded_batch(docs: dict, pool: int, width: int):
 
 def forward_phase(tparams, cfg, docs: dict, eng, width: int = 1024) -> dict:
     """``transformer.forward`` on the padded batch. Each document's last-row
-    logits must match the engine's full forward within 1e-3, unless a VQ
+    logits must match the engine's full forward within 3e-4, unless a VQ
     code flipped at a near-tie (the engine's top-two scores within 1e-4:
     the two routes sum the same products in another order)."""
     from repro_torch.core import vq as vq_mod
@@ -881,8 +901,8 @@ def forward_phase(tparams, cfg, docs: dict, eng, width: int = 1024) -> dict:
             if (diff[first] & ((top2[..., 0] - top2[..., 1]) > 1e-4)).any():
                 raise AssertionError(f"forward: {did} codes differ at layer {first} "
                                      "away from near-ties")
-        elif d > 1e-3:
-            raise AssertionError(f"forward: {did} last-row logits differ by {d} (1e-3)")
+        elif d > 3e-4:
+            raise AssertionError(f"forward: {did} last-row logits differ by {d} (3e-4)")
         diffs[did] = d
     call = lambda: T.forward(tparams, cfg, tt, tp)
     ms = time_ms(call, warmup=2, iters=10)
@@ -1015,7 +1035,7 @@ def patch_phase(params, cfg, docs, stream, fused) -> dict:
         flips[did] = code_diff(fused, patch, did, vq_bias)
         if flips[did] == 0:
             logit_diff[did] = float(np.abs(patch.logits(did) - fused.logits(did)).max())
-            if logit_diff[did] > 1e-3:
+            if logit_diff[did] > 3e-4:
                 raise AssertionError(f"patch: {did} logits differ by {logit_diff[did]}")
     dispatches = st.batch_steps
     # one more round under torch.profiler: the edits the profile phase
@@ -1321,10 +1341,13 @@ def fleet_phase(params, cfg, docs: dict, stream, n_new: int = 8) -> dict:
     oracle.open_document(mig, refs[mig])
     cold = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
     t0 = time.perf_counter()
-    fleet = FleetRouter(2, smoke=smoke, seed=0, cold_dir=cold, device=DEVICE,
+    # a replica a card where there are two
+    devices = ["cuda:0", "cuda:1"] if torch.cuda.device_count() >= 2 else DEVICE
+    fleet = FleetRouter(2, smoke=smoke, seed=0, cold_dir=cold, device=devices,
                         max_batch_delay_ms=5.0)
     boot_s = time.perf_counter() - t0
-    out = dict(boot_s=boot_s, worker_boot_s=[r.boot_s for r in fleet.replicas])
+    out = dict(boot_s=boot_s, worker_boot_s=[r.boot_s for r in fleet.replicas],
+               devices=devices)
     try:
         fleet.open_document(mig, refs[mig]).result(wait)
         for t in [fleet.open_document(d, refs[d]) for d in docs if d != mig]:
@@ -1434,7 +1457,7 @@ NEAR_TIE = 1e-4  # top-two VQ scores this close may flip between two routes
 
 def sync(device) -> None:
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(device)
 
 
 def engine_scores(eng, st, li: int, rows=None) -> torch.Tensor:
@@ -1485,7 +1508,8 @@ def incremental_phase(params, cfg, docs: dict, stream, srv, device=None,
     edits in its order, each edit's counted ops beside the dense
     from-scratch cost and its host-clock ms (synchronized). Then every
     document's final state against the engine's own ``full_forward``
-    (codes equal but for near ties, logits within 1e-3), the batch server
+    (codes equal but for near ties; where none flipped, logits within 3e-4
+    and the last layer's states within 5e-5), the batch server
     ``srv``'s slot codes and logits against the same engine's full forward
     of its tokens and positions, and the ``twin`` document's edits replayed
     in step on a CPU server: each edit's op count equal, or its first
@@ -1541,8 +1565,11 @@ def incremental_phase(params, cfg, docs: dict, stream, srv, device=None,
         row = dict(n=state.n, flips=flips,
                    max_abs_x_diff=float((state.xs[-1] - full.xs[-1]).abs().max()),
                    logits_diff=float((eng.logits_at(state) - eng.logits_at(full)).abs().max()))
-        if not flips and row["logits_diff"] > 1e-3:
+        if not flips and row["logits_diff"] > 3e-4:
             raise AssertionError(f"incremental: {did} logits differ by {row['logits_diff']}")
+        if not flips and row["max_abs_x_diff"] > 5e-5:
+            raise AssertionError(
+                f"incremental: {did} states differ by {row['max_abs_x_diff']} (5e-5)")
         exact[did] = row
 
     oracle = {}
@@ -1553,7 +1580,7 @@ def incremental_phase(params, cfg, docs: dict, stream, srv, device=None,
         flips = near_tie_flips(eng, slot_state, _Layers(full), f"incremental: BatchServer {did}",
                                rows_a=slots)
         d = float(np.abs(srv.logits(did) - eng.logits_at(full).cpu().numpy()).max())
-        if not flips and d > 1e-3:
+        if not flips and d > 3e-4:
             raise AssertionError(f"incremental: BatchServer {did} logits differ by {d}")
         oracle[did] = dict(n=doc.n, flips=flips, logits_diff=d)
 
@@ -1569,6 +1596,138 @@ def incremental_phase(params, cfg, docs: dict, stream, srv, device=None,
                               near_tie_divergences=twin_diverged),
                 per_edit=[[p["doc"], p["op"], p["ops"], p["dense"], round(p["ms"], 3)]
                           for p in per_edit])
+
+
+# ------------------------------------------------------------ the mesh
+
+
+def default_mesh() -> list:
+    """Phase 15's blocks: one a card where there are 2 to 4 cards (2 of 3:
+    ``max_batch`` 8 needs a power of two), else 2 blocks on the one card."""
+    count = torch.cuda.device_count()
+    if count >= 2:
+        return [f"cuda:{i}" for i in range(4 if count >= 4 else 2)]
+    return ["cuda:0"] * 2
+
+
+def mesh_phase(params, cfg, docs: dict, stream, mesh=None, device=None, n_new: int = 8,
+               sub: str = "d256") -> dict:
+    """The serve stream with an ``n_new``-token subscription on ``sub``
+    through ``BatchServer(mesh=mesh, max_batch=8)`` (k blocks), against a
+    ``BatchServer(device=device)`` on the same stream: tokens equal (and
+    equal the host replay), ``edits_applied`` equal, slot codes equal but
+    for near ties (top-two scores within ``NEAR_TIE``; counted), logits
+    within 3e-4 where no code flipped, the suggestion equal to
+    ``oracle_suggestion`` (or differing first at a near tie of the
+    oracle's logits, counted), ``sharded_dispatches > 0``, 12 × k
+    ``fused_step`` launches an edit dispatch, one weight replica per
+    distinct device, and no state move when every block is on one device.
+    Then a one-entry mesh on the same stream is bitwise the single-device
+    server: every state leaf, ``logits()`` and the suggestion."""
+    from repro_torch.core.edits import apply_edits
+    from repro_torch.serving.batch_server import BatchServer
+    from repro_torch.serving.suggest import oracle_suggestion
+
+    device = device or DEVICE
+    mesh = mesh or default_mesh()
+    k, devices = len(mesh), list(dict.fromkeys(str(d) for d in mesh))
+    on_card = torch.device(device).type == "cuda"
+
+    def run(**kw):
+        srv = BatchServer(params, cfg, max_batch=8, **kw)
+        srv.open_documents({d: list(t) for d, t in docs.items()})
+        srv.submit_suggest(sub, n_new)
+        seconds = 0.0
+        for batch in stream:
+            for did, e in batch:
+                srv.submit_edit(did, e)
+            t0 = time.perf_counter()
+            srv.flush()
+            for d in devices:
+                sync(d)
+            seconds += time.perf_counter() - t0
+        return srv, seconds
+
+    one, one_s = run(device=device)
+    if on_card:
+        for d in devices:
+            torch.cuda.reset_peak_memory_stats(d)
+    base_mem = {d: torch.cuda.memory_allocated(d) for d in devices} if on_card else {}
+    reset_launches()
+    with fused_step_census() as census:
+        srv, mesh_s = run(mesh=mesh)
+    launches = launch_counters()[1]()
+    st = srv.stats
+    if srv.n_shards != k or st.sharded_dispatches < 1:
+        raise AssertionError(f"mesh: {st.sharded_dispatches} sharded dispatches over {k} blocks")
+    want = n_layers(cfg) * k * st.batch_steps
+    if launches["fused_step"] != want or sum(census.values()) != want:
+        raise AssertionError(f"mesh: fused_step launched {launches['fused_step']} times "
+                             f"({sum(census.values())} calls) for {st.batch_steps} dispatches "
+                             f"of {k} blocks (expected {want})")
+    if st.edits_applied != one.stats.edits_applied:
+        raise AssertionError(f"mesh: {st.edits_applied} edits applied, the single-device "
+                             f"server {one.stats.edits_applied}")
+    eng = srv.engine(srv.C, srv.R)
+    if sorted(str(d) for d in eng.replicas) != sorted(devices):
+        raise AssertionError(f"mesh: weight replicas on {sorted(map(str, eng.replicas))} "
+                             f"for the devices {devices}")
+    if len(devices) == 1 and st.state_moves:
+        raise AssertionError(f"mesh: {st.state_moves} state moves with every block on one device")
+    vq_bias = one.engine(one.C, one.R).W["vq_bias"]
+    flips, logit_diff = {}, {}
+    for did, toks in docs.items():
+        replay = apply_edits(toks, [e for batch in stream for d, e in batch if d == did])
+        if not (np.array_equal(srv.tokens(did), replay)
+                and np.array_equal(one.tokens(did), replay)):
+            raise AssertionError(f"mesh: {did} tokens differ from the host replay")
+        flips[did] = code_diff(one, srv, did, vq_bias, tie=NEAR_TIE)
+        if flips[did] == 0:
+            logit_diff[did] = float(np.abs(srv.logits(did) - one.logits(did)).max())
+            if logit_diff[did] > 3e-4:
+                raise AssertionError(f"mesh: {did} logits differ by {logit_diff[did]}")
+    doc = srv.docs[sub]
+    got = srv.suggestion(sub)
+    ora = oracle_suggestion(srv.suggester.params, cfg, eng, doc.tokens, doc.positions,
+                            doc.valid, n_new)
+    suggestion_near_tie = None
+    if got is None or not np.array_equal(got, ora):
+        j = 0 if got is None else int(np.flatnonzero(got != ora)[0])
+        suggestion_near_tie = first_token_near_tie(srv.suggester.params, cfg, doc, ora, j)
+        if got is None or suggestion_near_tie > NEAR_TIE:
+            raise AssertionError(f"mesh: {sub}'s suggestion {got} differs from the oracle's "
+                                 f"{ora} (top-two logit gap {suggestion_near_tie})")
+    weights = {str(d): tensor_bytes(list(w[:2])) for d, w in eng.replicas.items()}
+    peak = ({d: torch.cuda.max_memory_allocated(d) - base_mem[d] for d in devices}
+            if on_card else None)
+    del srv
+
+    # a one-entry mesh is the single-device path, bit for bit
+    m1, _ = run(mesh=[mesh[0]])
+    if m1.stats.sharded_dispatches or m1.stats.batch_steps != one.stats.batch_steps:
+        raise AssertionError("mesh: the one-entry mesh dispatched otherwise")
+    for did in docs:
+        for name, a, b in zip(one.state(did)._fields, one.state(did), m1.state(did)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"mesh: one-entry mesh {did}.{name} is not bitwise")
+        if not np.array_equal(one.logits(did), m1.logits(did)):
+            raise AssertionError(f"mesh: one-entry mesh {did} logits are not bitwise")
+    if not np.array_equal(one.suggestion(sub), m1.suggestion(sub)):
+        raise AssertionError("mesh: one-entry mesh suggestion differs")
+    return dict(k=k, mesh=[str(d) for d in mesh], max_batch=8,
+                edits=st.edits_applied, edit_dispatches=st.batch_steps,
+                sharded_dispatches=st.sharded_dispatches,
+                mean_shard_imbalance=st.mean_shard_imbalance, state_moves=st.state_moves,
+                overflows=st.overflows, grows=st.grows, defrags=st.defrags,
+                launches={n: launches[n] for n in ("fused_step", "vq_assign")},
+                fused_step_block_shapes=census, near_tie_flips=flips,
+                max_logits_diff=logit_diff, suggestion=[int(t) for t in got],
+                suggestion_near_tie=suggestion_near_tie,
+                edits_per_s_single=one.stats.edits_applied / one_s,
+                edits_per_s_mesh=st.edits_applied / mesh_s,
+                weight_replica_bytes=weights,
+                suggester_weight_bytes=tensor_bytes(m1.suggester.params),
+                peak_mem_above_start_bytes=peak, mesh_of_one_bitwise=True)
 
 
 SWEEPS = ("delta_gate", "vq_assign", "patch", "gated_attention")
@@ -1696,7 +1855,7 @@ def main() -> int:
         flips[did] = code_diff(srv, inline, did, vq_bias)
         if flips[did] == 0:
             logit_diff[did] = float(np.abs(srv.logits(did) - inline.logits(did)).max())
-            if logit_diff[did] > 1e-3:
+            if logit_diff[did] > 3e-4:
                 raise AssertionError(f"parity: {did} logits differ by {logit_diff[did]}")
     emit("parity", seconds=time.perf_counter() - t0, near_tie_flips=flips,
          max_logits_diff=logit_diff)
@@ -1777,6 +1936,11 @@ def main() -> int:
     inc = incremental_phase(params, cfg, docs, stream, srv)
     emit("incremental", seconds=time.perf_counter() - t0, nvidia_smi=smi, **inc)
 
+    # ---- 15. mesh: the document axis over k blocks
+    t0 = time.perf_counter()
+    msh = mesh_phase(params, cfg, docs, stream)
+    emit("mesh", seconds=time.perf_counter() - t0, nvidia_smi=smi, **msh)
+
     # ---- summary
     c72 = next(f for f in fused if f["C"] == 72 and f["mask"] == "random")
     r_top = max(gate_rows, key=gate_rows.get)  # the most served r
@@ -1786,6 +1950,7 @@ def main() -> int:
         dict(name="fused_step", route="cuda", source="src/repro_torch/csrc/fused_step.cu",
              replaces="src/repro/kernels/fused_step/fused_step.py:179",
              launches=serve_launches["fused_step"],
+             mesh_launches=msh["launches"]["fused_step"],
              max_abs_err=max(f["max_abs_err"] for f in fused), ms=c72["ms"],
              plain_ms=c72["plain_ms"], bound_ms=c72["bound_ms"],
              bound_by=c72["bound_by"], library_ms=None),

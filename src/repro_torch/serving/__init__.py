@@ -15,12 +15,14 @@ _EXPORTS = {
     "SuggestStats": "suggest", "oracle_suggestion": "suggest",
     "DeviceBudgetError": "state_store", "StateStore": "state_store",
     "IncrementalServer": "engine", "ServerStats": "engine",
+    "make_serving_mesh": "repro_torch.launch.mesh",
 }
 __all__ = sorted(_EXPORTS)
 
 
 def __getattr__(name):
     if name in _EXPORTS:
+        mod = _EXPORTS[name]
         return getattr(importlib.import_module(
-            f"repro_torch.serving.{_EXPORTS[name]}"), name)
+            mod if "." in mod else f"repro_torch.serving.{mod}"), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

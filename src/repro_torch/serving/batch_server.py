@@ -35,8 +35,22 @@ allocator ids, the host mirrors and the slot layout verbatim. The async
 front end (``serving.async_server``) records per-request latencies in
 ``edit_latency`` / ``suggest_latency``.
 
-Not ported yet (later slices): the serving mesh and the persistent
-compilation cache.
+With ``mesh=`` (a device list: ``launch.mesh.make_serving_mesh()``, or
+entries that repeat, ``["cuda:0"] * 2``) every dispatch shards its document
+axis over the mesh (``BatchedJitEngine``'s module docstring): batches pad to
+a multiple of the mesh's k entries, and members are PLACED — each device
+serves a contiguous block of rows, so the scheduler puts the heaviest edit
+buckets on the lightest block (greedy LPT) and tracks the per-block
+dirty-slot imbalance in ``stats.mean_shard_imbalance``. A document's state
+rests on the device of the block that last wrote it; a dispatch that places
+it on another device copies it there (``stats.state_moves``; a no-op when
+the blocks share a card), and every single-document path (re-ingest, grow,
+defrag, ``logits``, the suggestion's KV export) runs on the device where
+the state rests. Rehydrated and imported states land on the primary device
+``mesh[0]``, where the suggester's weights live. A one-entry mesh (or
+``mesh=None``) is the single-device scheduler bit for bit.
+
+Not ported yet (a later slice): the persistent compilation cache.
 
 Host mirrors are copied to the device with ``torch.tensor`` (never
 ``torch.from_numpy``, which would share storage with a mirror the next take
@@ -53,7 +67,6 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
 from repro_torch.checkpoint.store import (
     restore_serving_document, save_serving_document,
 )
@@ -125,6 +138,10 @@ class BatchStats:
     # ---- cross-process migration (fleet serving)
     exports: int = 0  # export_document calls
     imports: int = 0  # import_document calls
+    # ---- per-device dispatch balance (serving over a mesh of k > 1)
+    sharded_dispatches: int = 0  # dispatches issued over a mesh of k > 1
+    shard_imbalance_sum: float = 0.0  # sum over dispatches of (max-min)/max load
+    state_moves: int = 0  # member states copied to another device for a dispatch
 
     @property
     def mean_batch(self) -> float:
@@ -135,6 +152,13 @@ class BatchStats:
         """Fraction of device-state touches served from the hot tier; 1.0
         when the budget never forced a rehydration."""
         return self.hot_hits / max(self.state_touches, 1)
+
+    @property
+    def mean_shard_imbalance(self) -> float:
+        """Mean per-dispatch dirty-slot imbalance across the mesh's blocks:
+        0.0 = perfectly balanced, 1.0 = one block received all the work
+        while another idled."""
+        return self.shard_imbalance_sum / max(self.sharded_dispatches, 1)
 
 
 @dataclass
@@ -185,7 +209,7 @@ class BatchServer:
                  pos_pool: Optional[int] = None,
                  device_budget_bytes: Optional[int] = None,
                  host_budget_bytes: Optional[int] = None,
-                 spill_dir: Optional[str] = None, device="cuda"):
+                 spill_dir: Optional[str] = None, device=None, mesh=None):
         """``use_fused_kernel`` (default on, as in the reference) routes each
         layer's patch + requantize through one ``fused_step`` kernel launch;
         ``use_patch_kernel`` (with the fused kernel off) routes only the
@@ -196,12 +220,14 @@ class BatchServer:
         ``device_budget_bytes`` / ``host_budget_bytes`` bound the hot and
         warm tiers of the state store (None: unbounded; accounting is always
         on) and ``spill_dir`` holds the cold tier (default: a fresh
-        temporary directory on first spill)."""
+        temporary directory on first spill). ``device`` defaults to
+        ``"cuda"``; with ``mesh=`` (a sequence of devices) it defaults to,
+        and must be, ``mesh[0]``, and ``max_batch`` must be a multiple of
+        ``len(mesh)``."""
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if capacity_class_step < 2:
             raise ValueError("capacity_class_step must be >= 2")
-        self.device = resolve_device(device)
         self.cfg = cfg
         self.C = next_pow2(edit_capacity)
         self.R = next_pow2(row_capacity)
@@ -219,8 +245,22 @@ class BatchServer:
                                 use_patch_kernel=use_patch_kernel,
                                 use_fused_kernel=use_fused_kernel,
                                 delta_threshold=self.delta_threshold,
-                                device=self.device)
+                                device=device, mesh=mesh)
+        if base.n_shards > max_batch:
+            raise ValueError(
+                f"serving mesh batch axis of {base.n_shards} exceeds "
+                f"max_batch={max_batch} — every dispatch must give each "
+                "device at least one document row")
+        if max_batch % base.n_shards != 0:
+            raise ValueError(
+                f"max_batch={max_batch} is not a multiple of the serving "
+                f"mesh's {base.n_shards}-way batch axis — a full chunk "
+                "would pad past the max_batch cap")
+        self.device = base.device  # the primary device
+        self.mesh = base.mesh
+        self.n_shards = base.n_shards
         self._weights = base.weights
+        self._replicas = base.replicas
         self._engines: dict[tuple[int, int], BatchedJitEngine] = {
             (self.C, self.R): base}
         self._shapes_seen: set = set()
@@ -277,7 +317,8 @@ class BatchServer:
                 use_patch_kernel=self.use_patch_kernel,
                 use_fused_kernel=self.use_fused_kernel,
                 delta_threshold=self.delta_threshold, device=self.device,
-                _weights=self._weights)
+                mesh=self.mesh, _weights=self._weights,
+                _replicas=self._replicas)
         return self._engines[key]
 
     def _count_shape(self, shape: tuple) -> None:
@@ -294,8 +335,90 @@ class BatchServer:
     def _padded_batch(self, chunk_len: int) -> int:
         """Dispatch batch sizes are padded up to a power of two (capped at
         ``max_batch``), so each capacity bucket sees O(log max_batch)
-        shapes."""
-        return min(next_pow2(chunk_len), self.max_batch)
+        shapes, then rounded up to a multiple of the mesh's k blocks (each
+        device takes a contiguous ``B_pad / k`` block of document rows)."""
+        b = min(next_pow2(chunk_len), self.max_batch)
+        n = self.n_shards
+        b = max(b, n)
+        return -(-b // n) * n
+
+    def _place_rows(self, weights: list, B_pad: int) -> tuple[list, list]:
+        """Balanced placement of dispatch members onto the padded batch rows.
+
+        Each mesh block serves the contiguous row block
+        ``[s*B_pad/n, (s+1)*B_pad/n)``, so WHERE a document lands decides
+        which device does its dirty-slot work. Greedy longest-processing-time
+        assignment: heaviest bucket first onto the lightest non-full block.
+        Returns ``(rows, loads)``: ``rows[r]`` is the member index occupying
+        padded row ``r`` (None = filler row carrying an empty edit bucket),
+        ``loads[s]`` the per-block dirty-slot totals. With a single block
+        the placement is the identity, the single-device dispatch layout."""
+        n = self.n_shards
+        if n == 1:
+            rows = list(range(len(weights)))
+            rows += [None] * (B_pad - len(weights))
+            return rows, [sum(weights)]
+        per = B_pad // n
+        blocks: list[list] = [[] for _ in range(n)]
+        loads = [0] * n
+        order = sorted(range(len(weights)), key=lambda i: (-weights[i], i))
+        for i in order:
+            s = min((j for j in range(n) if len(blocks[j]) < per),
+                    key=lambda j: (loads[j], len(blocks[j]), j))
+            blocks[s].append(i)
+            loads[s] += weights[i]
+        rows = []
+        for blk in blocks:
+            rows.extend(blk)
+            rows.extend([None] * (per - len(blk)))
+        return rows, loads
+
+    def _note_balance(self, loads: list) -> None:
+        if self.n_shards > 1:
+            self.stats.sharded_dispatches += 1
+            hi = max(loads)
+            self.stats.shard_imbalance_sum += (hi - min(loads)) / max(hi, 1)
+
+    def _block_device(self, row: int, B_pad: int) -> torch.device:
+        """The device of the block that serves padded row ``row``."""
+        if self.n_shards == 1:
+            return self.device
+        return self.mesh[row // (B_pad // self.n_shards)]
+
+    def _moved(self, state: JitState, device) -> JitState:
+        """``state`` on ``device``: the state itself, or a copy when it rests
+        on another device (counted in ``stats.state_moves``)."""
+        if state.x.device == device:
+            return state
+        self.stats.state_moves += 1
+        return JitState(*(leaf.to(device) for leaf in state))
+
+    def _batch_rows(self, states: list, rows: list):
+        """The dispatch's stacked input: one stack (single device), or one
+        stack per block built on the block's own device. A filler row
+        repeats member 0 (single device) or its block's first member; a
+        block of filler rows only is zeros made on its device, so no state
+        crosses devices for output that is dropped."""
+        if self.n_shards == 1:
+            return stack_states([states[i if i is not None else 0] for i in rows])
+        per = len(rows) // self.n_shards
+        out = []
+        for s, dev in enumerate(self.mesh):
+            blk = rows[s * per:(s + 1) * per]
+            if blk[0] is None:  # members fill each block from its first row
+                out.append(JitState(*(torch.zeros((per, *leaf.shape), dtype=leaf.dtype,
+                                                  device=dev) for leaf in states[0])))
+                continue
+            out.append(stack_states([self._moved(states[blk[0] if i is None else i], dev)
+                                     for i in blk]))
+        return out
+
+    def _unstack_row(self, batched, row: int, B_pad: int) -> JitState:
+        """Padded row ``row``'s state out of a dispatch's result."""
+        if self.n_shards == 1:
+            return unstack_state(batched, row)
+        per = B_pad // self.n_shards
+        return unstack_state(batched[row // per], row % per)
 
     @property
     def _pos_sentinel(self) -> int:
@@ -303,9 +426,15 @@ class BatchServer:
         # the gather, >= every allocated id, and masked out by valid anyway.
         return self.pos_pool - 1
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        """An eager device copy of a (possibly live) host mirror."""
-        return torch.tensor(arr, device=self.device)
+    def _to_device(self, arr: np.ndarray, device=None) -> torch.Tensor:
+        """An eager copy of a (possibly live) host mirror on ``device``
+        (default: the primary device)."""
+        return torch.tensor(arr, device=self.device if device is None else device)
+
+    def _resting(self, doc: _BatchDoc) -> torch.device:
+        """Where the document's state rests (the primary device when it has
+        no device state)."""
+        return self.device if doc.state is None else doc.state.x.device
 
     # ------------------------------------------------------------- documents
 
@@ -346,21 +475,26 @@ class BatchServer:
                 B_pad = self._padded_batch(len(chunk))
                 self.store.admit(
                     len(chunk) * state_nbytes_for(n_cap, eng.L, eng.meta))
-                # filler rows repeat the first member; their output is dropped
-                row_of = chunk + [chunk[0]] * (B_pad - len(chunk))
+                # ingest work scales with real length: balance it per block;
+                # filler rows repeat the first member, their output dropped
+                rows, loads = self._place_rows([c[4] for c in chunk], B_pad)
+                row_of = [chunk[i] if i is not None else chunk[0] for i in rows]
                 bstate = eng.batch_full_forward(
                     self._to_device(np.stack([c[1] for c in row_of])),
                     self._to_device(np.stack([c[3] for c in row_of])),
                     self._to_device(np.stack([c[2] for c in row_of])))
                 self._count_shape(("full", B_pad, n_cap))
-                for b, (doc_id, padded, valid, positions, n, n_cap,
-                        alloc) in enumerate(chunk):
+                self._note_balance(loads)
+                for b, i in enumerate(rows):
+                    if i is None:
+                        continue
+                    doc_id, padded, valid, positions, n, n_cap, alloc = chunk[i]
                     doc = _BatchDoc(
                         doc_id=doc_id, tokens=padded, valid=valid,
                         positions=positions, slots=list(range(n)),
                         free=list(range(n_cap - 1, n - 1, -1)), n_cap=n_cap,
                         row_capacity=min(self.R, n_cap), allocator=alloc,
-                        state=unstack_state(bstate, b), n_virtual=n)
+                        state=self._unstack_row(bstate, b, B_pad), n_virtual=n)
                     self.docs[doc_id] = doc
                     self.store.register(doc)
                     self.stats.docs += 1
@@ -644,42 +778,51 @@ class BatchServer:
         counts = [t[3] for t in chunk]
         keep = frozenset(d.doc_id for d in docs)
         states = [self.store.ensure_hot(d, keep=keep) for d in docs]
-        # pad to a pow2 batch with copies of doc 0 carrying empty edit
-        # buckets (all -1): no-op slices whose output is discarded
+        # pad to a pow2 batch (a multiple of the mesh's blocks) with filler
+        # rows carrying empty edit buckets (all -1): no-op slices whose
+        # output is discarded. Members are placed to balance dirty-slot work
+        # across the per-device row blocks.
         B_pad = self._padded_batch(len(chunk))
+        rows, loads = self._place_rows(counts, B_pad)
         empty = (np.full(C, -1, np.int32), np.zeros(C, np.int32),
                  np.zeros(C, np.int32), np.zeros(C, np.int32))
-        row_buckets = buckets + [empty] * (B_pad - len(chunk))
-        states = states + [states[0]] * (B_pad - len(chunk))
+        row_buckets = [buckets[i] if i is not None else empty for i in rows]
         slot, tok, pos = (self._to_device(np.stack([b[i] for b in row_buckets]))
                           for i in range(3))
-        batched = stack_states(states)
+        batched = self._batch_rows(states, rows)
         if kind == "replace":
             new_state, overflow = eng.batch_apply_replaces(batched, slot, tok)
         elif kind == "insert":
             new_state, overflow = eng.batch_apply_inserts(batched, slot, tok, pos)
         else:
             new_state, overflow = eng.batch_apply_deletes(batched, slot)
-        overflow = overflow.cpu().numpy()  # the dispatch's one host read
+        # the dispatch's one host read, after every block's work is issued
+        overflow = overflow.cpu().numpy()
         self.stats.batch_steps += 1
         self.stats.batched_docs += len(chunk)
         # the op vector is data: all three kinds share one step shape
         self._count_shape(("edit", B_pad, n_cap, C, R))
+        self._note_balance(loads)
         applied = 0
-        for b, doc in enumerate(docs):
-            applied += counts[b]
-            self.stats.edits_applied += counts[b]
+        for b, i in enumerate(rows):
+            if i is None:
+                continue
+            doc = docs[i]
+            applied += counts[i]
+            self.stats.edits_applied += counts[i]
             if overflow[b]:
-                self._fallback_full_forward(doc)
+                self._fallback_full_forward(doc, self._block_device(b, B_pad))
             else:
-                self.store.set_hot(doc, unstack_state(new_state, b))
+                self.store.set_hot(doc, self._unstack_row(new_state, b, B_pad))
         return applied
 
     # ------------------------------------------------------------ slow paths
 
-    def _reingest(self, doc: _BatchDoc) -> None:
-        """Rebuild device state from the host mirrors (one full forward)."""
-        eng = self.engine(self.C, self.R)
+    def _reingest(self, doc: _BatchDoc, device=None) -> None:
+        """Rebuild device state from the host mirrors (one full forward) on
+        ``device`` (default: where the state rests)."""
+        device = self._resting(doc) if device is None else device
+        eng = self.engine(self.C, self.R).on(device)
         # admit the replacement up front (a grown buffer is bigger than the
         # one it replaces; an evicted document brings wholly new bytes)
         resident = (self.store.nbytes(doc.doc_id)
@@ -687,9 +830,9 @@ class BatchServer:
         self.store.admit(max(state_nbytes_for(doc.n_cap, eng.L, eng.meta)
                              - resident, 0),
                          keep=frozenset((doc.doc_id,)))
-        state = eng.full_forward(self._to_device(doc.tokens),
-                                 self._to_device(doc.positions),
-                                 self._to_device(doc.valid))
+        state = eng.full_forward(self._to_device(doc.tokens, device),
+                                 self._to_device(doc.positions, device),
+                                 self._to_device(doc.valid, device))
         self.store.set_hot(doc, state)
         # a from-scratch full forward again: every exported column is
         # trustworthy for suggestion KV reuse
@@ -697,11 +840,12 @@ class BatchServer:
         self.stats.full_forwards += 1
         self._count_shape(("full", doc.n_cap))
 
-    def _fallback_full_forward(self, doc: _BatchDoc) -> None:
+    def _fallback_full_forward(self, doc: _BatchDoc, device) -> None:
         """Overflow: discard the unreliable batched slice, recompute from the
-        host mirrors, and double the document's row bucket."""
+        host mirrors on the dispatch block's ``device``, and double the
+        document's row bucket."""
         self.stats.overflows += 1
-        self._reingest(doc)
+        self._reingest(doc, device)
         if doc.row_capacity < doc.n_cap:
             doc.row_capacity = min(doc.row_capacity * 2, doc.n_cap)
 
@@ -753,22 +897,23 @@ class BatchServer:
                 doc.allocator.snapshot()
             self._reingest(doc)
             return
-        eng = self.engine(self.C, self.R)
         state = self.store.ensure_hot(doc, keep=frozenset((doc.doc_id,)))
+        dev = state.x.device
+        eng = self.engine(self.C, self.R).on(dev)
         n = doc.n
         # compaction permutation: live slots in sequence order, then the
         # free tail — slot i of the permuted buffers is token i
         order = np.concatenate([np.asarray(doc.slots, np.int32),
                                 np.asarray(doc.free, np.int32)])
         doc.allocator.defragment()
-        permuted = eng.gather_slots(state, self._to_device(order))
+        permuted = eng.gather_slots(state, self._to_device(order, dev))
         new_positions = np.full(doc.n_cap, self._pos_sentinel, np.int32)
         new_positions[:n] = doc.allocator.snapshot()
         new_valid = np.zeros(doc.n_cap, bool)
         new_valid[:n] = True
         self.store.set_hot(doc, eng.full_forward(
-            permuted.tokens, self._to_device(new_positions),
-            self._to_device(new_valid)))
+            permuted.tokens, self._to_device(new_positions, dev),
+            self._to_device(new_valid, dev)))
         # host mirrors follow the compaction so slot indices keep matching
         doc.tokens = doc.tokens[order]
         doc.valid = new_valid
@@ -852,8 +997,8 @@ class BatchServer:
         t0 = time.perf_counter()
         try:
             toks = sugg.refresh(
-                eng, doc.state, key=doc.doc_id, n_new=doc.suggest_n,
-                invalid_from=doc.invalid_from,
+                eng.on(self._resting(doc)), doc.state, key=doc.doc_id,
+                n_new=doc.suggest_n, invalid_from=doc.invalid_from,
                 export_invalid_from=doc.touched_from, on_token=on_token)
         except PositionHeadroomError:
             # the tail gap is exhausted: re-spread the ids (a defrag and its
@@ -861,8 +1006,8 @@ class BatchServer:
             self.stats.suggest_headroom_defrags += 1
             self._defrag(doc)
             toks = sugg.refresh(
-                eng, doc.state, key=doc.doc_id, n_new=doc.suggest_n,
-                invalid_from=doc.invalid_from,
+                eng.on(self._resting(doc)), doc.state, key=doc.doc_id,
+                n_new=doc.suggest_n, invalid_from=doc.invalid_from,
                 export_invalid_from=doc.touched_from, on_token=on_token)
         self.stats.refresh_latency.record((time.perf_counter() - t0) * 1e3)
         doc.suggestion = toks
@@ -890,7 +1035,7 @@ class BatchServer:
     def logits(self, doc_id: str) -> np.ndarray:
         doc = self._flushed(doc_id)
         state = self.store.ensure_hot(doc)
-        eng = self.engine(self.C, self.R)
+        eng = self.engine(self.C, self.R).on(state.x.device)
         return eng.logits_at(state, doc.slots[-1]).cpu().numpy()
 
     # ------------------------------------------------------------- migration

@@ -4,7 +4,8 @@
 The workers are ``python -m repro_torch.serving.fleet.worker`` subprocesses;
 ``device=`` (default ``"cuda"``) is forwarded to them, so several replicas
 share one card (or run on the CPU in the tests), each building the same
-seeded weights.
+seeded weights. ``device`` may also be a list with one device per replica
+(``["cuda:0", "cuda:1"]``: a replica per card).
 
 The router is the fleet's single control point (DESIGN.md §11). It spawns N
 replica workers (``fleet.worker`` subprocesses), speaks the framed RPC of
@@ -98,6 +99,20 @@ class FleetStats:
     repair_edits: int = 0  # snapshot -> acked-mirror repair ops applied
 
 
+def worker_specs(n_replicas: int, device, **common) -> list[dict]:
+    """Each replica worker's spec: ``common`` plus its name and its device —
+    ``device`` itself for every replica, or, from a list or tuple, the
+    replica's own entry (the list must hold one per replica)."""
+    if isinstance(device, (list, tuple)):
+        if len(device) != n_replicas:
+            raise ValueError(f"{len(device)} devices for {n_replicas} replicas")
+        devices = [str(d) for d in device]
+    else:
+        devices = [str(device)] * n_replicas
+    return [{**common, "device": dev, "replica": f"r{idx}"}
+            for idx, dev in enumerate(devices)]
+
+
 class _Replica:
     """Router-side handle: the subprocess, its RPC thread, and its load
     accounting (docs owned, in-flight edits, estimated hot bytes)."""
@@ -139,7 +154,7 @@ class FleetRouter:
                  max_batch_delay_ms: float = 5.0,
                  bucket_docs: Optional[int] = None,
                  heartbeat_interval_s: Optional[float] = 2.0,
-                 worker_env: Optional[dict] = None, device: str = "cuda"):
+                 worker_env: Optional[dict] = None, device="cuda"):
         if n_replicas < 1:
             raise ValueError("n_replicas must be >= 1")
         self.arch = arch
@@ -163,14 +178,12 @@ class FleetRouter:
         self._cap_step = self.server_kwargs.get("capacity_class_step", 4)
         self._cfg = get_config(arch, smoke=smoke)
 
-        spec_common = {
-            "arch": arch, "smoke": smoke, "seed": seed, "device": device,
-            "cold_dir": self.cold_dir,
-            "server_kwargs": self.server_kwargs,
-            "async_kwargs": {"max_batch_delay_ms": max_batch_delay_ms,
-                             **({"bucket_docs": bucket_docs}
-                                if bucket_docs else {})},
-        }
+        specs = worker_specs(
+            n_replicas, device, arch=arch, smoke=smoke, seed=seed,
+            cold_dir=self.cold_dir, server_kwargs=self.server_kwargs,
+            async_kwargs={"max_batch_delay_ms": max_batch_delay_ms,
+                          **({"bucket_docs": bucket_docs}
+                             if bucket_docs else {})})
         env = dict(os.environ)
         src_root = os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.dirname(os.path.abspath(__file__)))))
@@ -185,7 +198,7 @@ class FleetRouter:
                 stdin=subprocess.PIPE, stdout=subprocess.PIPE,
                 stderr=None, env=env)
             r = _Replica(idx, proc)
-            send_msg(proc.stdin, {**spec_common, "replica": r.name})
+            send_msg(proc.stdin, specs[idx])
             self.replicas.append(r)
         # readiness: workers boot in parallel (each pays the torch import and
         # the param init); collect the ready frames after all spawns

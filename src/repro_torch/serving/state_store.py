@@ -34,7 +34,10 @@ and movement counters; they reconcile exactly with a recount of the
 underlying objects (``tests/test_torch_state_store.py``).
 
 What differs from the reference: the store uploads to the server's
-``device`` (``state_from_host`` takes one), and nothing it keeps after an
+``device`` (``state_from_host`` takes one; over a mesh, the primary device
+``mesh[0]``, and the next dispatch moves the state to its block's device;
+the device budget counts the hot bytes of every device of the mesh
+together), and nothing it keeps after an
 eviction — the warm snapshot, the mirrors, the entry — holds a CUDA
 tensor, so ``torch.cuda.memory_allocated()`` falls by the evicted bytes
 once the server drops its own references.

@@ -202,10 +202,13 @@ class SuggestionEngine:
             caches = entry.caches
         else:
             p = min(boundary(export_invalid_from), n - 1)
+            # the export runs where the state rests; a state on another
+            # mesh device sends only its k/v over to the suggester's
             exp = engine.export_kv(state)
+            k, v = exp.k.to(self.device), exp.v.to(self.device)
             caches = T.caches_from_kv(
-                self.cfg, exp.k[:, None], exp.v[:, None],
-                torch.zeros((1,), dtype=torch.int32, device=exp.k.device),
+                self.cfg, k[:, None], v[:, None],
+                torch.zeros((1,), dtype=torch.int32, device=self.device),
                 seq_len=n_cap + n_new_cap, dtype=self.dtype)
             self.stats.rebuilds += 1
 

@@ -100,8 +100,48 @@ def test_incremental_phase_gates_pass_on_the_cpu():
     assert set(out["exactness"]) == set(out["batch_server_oracle"]) == set(docs)
     for row in out["exactness"].values():
         assert set(row) == {"n", "flips", "max_abs_x_diff", "logits_diff"}
-        assert row["flips"] or row["logits_diff"] <= 1e-3
+        assert row["flips"] or (row["logits_diff"] <= 3e-4
+                                and row["max_abs_x_diff"] <= 5e-5)
     twin = out["cpu_twin"]
     assert twin["doc"] == "d256" and twin["edits"] == sum(
         d == "d256" for b in stream for d, _ in b)
     assert twin["near_tie_divergences"] == []  # the twin is the same CPU here
+
+
+def test_mesh_phase_gates_pass_on_the_cpu(monkeypatch):
+    """Phase 15 on the smoke config with a two-block mesh of ``"cpu"``:
+    the serve stream's form on short documents named like ``DOC_LENGTHS``.
+    The engine's ``fused_step`` calls are counted as the card's wrapper
+    counts its launches (the CPU runs the plain version, which counts
+    none). Every gate passes and the counts add up."""
+    import numpy as np
+
+    from repro_torch.configs.vq_opt_125m import smoke_config
+    from repro_torch.kernels import fused_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import jit_engine
+
+    call = jit_engine.fused_patch_assign_batched
+
+    def counted(*args, **kw):
+        fused_step.LAUNCHES["fused_step"] += 1
+        return call(*args, **kw)
+
+    monkeypatch.setattr(jit_engine, "fused_patch_assign_batched", counted)
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    cfg = smoke_config()
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    lens = dict(zip(cs.DOC_LENGTHS, (16, 20, 30, 40)))
+    rng = np.random.default_rng(0)
+    docs = {did: [int(t) for t in rng.integers(0, cfg.vocab, n)] for did, n in lens.items()}
+    stream = cs.make_stream(cfg.vocab, rounds=3, per_doc=3, lens=lens)
+    out = cs.mesh_phase(params, cfg, docs, stream, mesh=["cpu", "cpu"], device="cpu", n_new=4)
+    assert out["k"] == 2 and out["mesh_of_one_bitwise"]
+    assert out["launches"]["fused_step"] == 2 * cs.n_layers(cfg) * out["edit_dispatches"]
+    assert sum(out["fused_step_block_shapes"].values()) == out["launches"]["fused_step"]
+    assert all(key.split("x")[0] in ("1", "2", "4") for key in out["fused_step_block_shapes"])
+    assert out["sharded_dispatches"] >= out["edit_dispatches"] > 0
+    assert 0.0 <= out["mean_shard_imbalance"] <= 1.0
+    assert out["state_moves"] == 0 and list(out["weight_replica_bytes"]) == ["cpu"]
+    assert set(out["near_tie_flips"]) == set(docs) and len(out["suggestion"]) == 4
+    assert all(d <= 3e-4 for d in out["max_logits_diff"].values())

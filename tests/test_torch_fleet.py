@@ -123,6 +123,28 @@ def test_worker_claims_its_pipe_before_torch_loads():
     subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
 
 
+@pytest.mark.parametrize("device", ["cuda", ("cuda:0", "cuda:1", "cuda:0"),
+                                    ["cpu", "cuda:2", "cuda:1"], ["cuda:0"]])
+def test_worker_specs_carry_each_replica_its_device(device):
+    """``FleetRouter(device=...)``: one device for every replica, or a list
+    with one entry a replica, each in its own worker's spec. The specs are
+    built without spawning a worker; a list of another length raises."""
+    from repro_torch.serving.fleet.router import worker_specs
+
+    if isinstance(device, str):
+        want = [device] * 3
+    elif len(device) != 3:
+        with pytest.raises(ValueError, match="1 devices for 3 replicas"):
+            worker_specs(3, device, arch="vq-opt-125m")
+        return
+    else:
+        want = list(device)
+    specs = worker_specs(3, device, arch="vq-opt-125m", smoke=True)
+    assert [s["device"] for s in specs] == want
+    assert [s["replica"] for s in specs] == ["r0", "r1", "r2"]
+    assert all(s["arch"] == "vq-opt-125m" and s["smoke"] for s in specs)
+
+
 def test_get_config_serves_only_the_ported_model():
     cfg = get_config("vq-opt-125m", smoke=True)
     assert cfg.vqt is not None and get_config("vq-opt-125m").d_model == 768
