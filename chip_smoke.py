@@ -21,12 +21,15 @@ and exits non-zero):
                 call's), ``delta_gate`` (d=768, r from 64 to 2048: the
                 served row counts; keep bits equal) beside the launch floor
                 (a one-element ``zero_()``), ``vq_assign`` (hq=2,
-                Q=64, dv=384; B=4 x N=1024, N=1024, N=32 and N=1: idx
-                equal away from near-ties, x_q bitwise the codebook row; the
-                VQ kernel's own device time by name beside the wrapper's),
-                ``gated_attention`` (BH=48, dh=64, n in {1024, 1000, 37},
-                within 1e-5; its bound at its route's peak, 3xTF32 on
-                the tensor cores, beside the FP32 cores') and ``incr_patch`` (B=4, n=1024, H=12, C in
+                Q=64, dv=384; B=4 x N=1024, N=1024, N=32 and N=1, and
+                phi4-mini's N=4096 at dv=1536: idx equal away from
+                near-ties, x_q bitwise the codebook row; the VQ kernel's own
+                device time by name beside the wrapper's),
+                ``gated_attention`` (BH=48, dh=64, n in {1024, 1000, 37};
+                dh=128 at phi4-mini's BH=24, n=4096 and dh=256 at gemma3's
+                BH=16, n=3072, each also at n=1000; within 1e-5; its
+                bound at its route's peak, 3xTF32 on the tensor cores,
+                beside the FP32 cores') and ``incr_patch`` (B=4, n=1024, H=12, C in
                 {8, 72, 264}, and 1x1024x1032, the most served step; within
                 1e-4, all-masked rows exactly 0).
 4. serve      — full-width VQ-OPT-125M (random weights from seed 0) behind
@@ -141,6 +144,27 @@ and exits non-zero):
                 shard imbalance, state moves between devices, edits/s for
                 both servers (host clock; host-bound, no claim), and peak
                 memory per device beside the weight replicas' bytes.
+16. families  — the dense-attention families (``phi4_phase``,
+                ``gemma3_phase``, ``smoke_families``). phi4-mini-3.8B with
+                VQT at full width and depth (4.46 B parameters drawn on the
+                card from seed 0): a [1, 4096] forward (32 ``gated_attention``
+                launches at BH=24, n=4096, dh=128 and 32 ``vq_assign``;
+                finite logits), timed (tokens/s) and profiled; prefill of
+                4,080 tokens in 1,024-token chunks and 16 decode steps
+                within 2e-3 of the forward's last 16 rows (a row whose own
+                VQ code flipped at a near tie, top-two scores within 1e-4,
+                is exempt and counted); the softmax model on the same
+                weights streams every layer, and layer 0's streaming
+                attention is within 2e-5 of the dense core. gemma3-12b
+                with VQT at full width, depth cut to one 5-local : 1-global
+                pattern (6 layers): a [1, 3072] forward (5 streamed σ
+                layers, 1 ``gated_attention`` launch at dh=256), then 1,100
+                decode steps past the 1,024-slot ring, the last within
+                2e-3 of a [1, 1100] forward. stablelm, h2o-danube (80
+                tokens, past its smoke window), internvl2 (8 patch
+                embeddings) and musicgen (4 codebooks) at smoke size, both
+                variants: launches by route, decode against forward.
+                Each model's weights are freed before the next.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line
 (``delta_gate`` at the threshold phase's most served r), and the last line
@@ -148,7 +172,9 @@ Then the card's name and power limit, one ``{"kernels": [...]}`` line
 kernels line come from the path that runs each kernel (serve for
 ``fused_step``, threshold for ``delta_gate``, forward for
 ``gated_attention``, the suggest flushes for ``vq_assign``, patch for
-``incr_patch``; ``fused_step``'s ``mesh_launches`` from the mesh phase),
+``incr_patch``; ``fused_step``'s ``mesh_launches`` from the mesh phase;
+``gated_attention``'s ``head_dims`` and ``vq_assign``'s ``dv1536`` from the
+families phase's forwards),
 with the counters set to 0 just before that path; launches made to compare
 or time a kernel do not count. Exits non-zero without a GPU
 and outside a checkout of the repo.
@@ -163,8 +189,10 @@ against its plain version, at every (B, n, C) the serve phase's edit steps
 run at (B in {1, 2, 4}, n=1024, C in {8, 72, 136, 264}; 1x1024x520 and
 1x1024x1032) and at 1x4096x72, ``incr_patch`` also with each of its two
 layouts forced, and ``gated_attention`` against its plain version at
-BH=48 x n in {37, 128, 256, 512, 1000, 1024, 2048}, BH=12 x n=1024 and
-BH=48 at (nq, nk) = (1024, 512) and (512, 1024), with both bounds; one
+BH=48 x n in {37, 128, 256, 512, 1000, 1024, 2048}, BH=12 x n=1024,
+BH=48 at (nq, nk) = (1024, 512) and (512, 1024) (dh=64), and dh=128 at
+BH=24 x n in {4096, 1000} and dh=256 at BH=16 x n in {3072, 1000}, with
+both bounds; one
 line a shape, and prints no ok line. ``--sweep delta_gate,patch`` runs only
 the named sweeps (of ``delta_gate``, ``vq_assign``, ``patch``,
 ``gated_attention``).
@@ -174,6 +202,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -452,6 +481,12 @@ def sweep_delta_gate(ops, ref, gen) -> None:
         emit("sweep", **row, shapes_ms=shapes)
 
 
+# the (tokens, dv) of phase 16's vq_assign calls, each schedule at each dv:
+# phi4-mini's forward, prefill chunks and decode steps (dv 1536), gemma3's
+# forward and decode steps (dv 2048)
+FAMILY_VQ = ((4096, 1536), (1024, 1536), (1, 1536), (3072, 2048), (1, 2048))
+
+
 def check_vq_assign(mod, gen, B: int, N: int, hq=2, Q=64, dv=384):
     """``vq_assign`` (B = 1) or ``vq_assign_batched`` against the plain
     version: indices equal except where the plain version's top-two scores
@@ -473,20 +508,20 @@ def check_vq_assign(mod, gen, B: int, N: int, hq=2, Q=64, dv=384):
     near = (top2[..., 0] - top2[..., 1]) <= 1e-4
     flips = idx != idx_p
     if (flips & ~near).any():
-        raise AssertionError(f"vq_assign B={B} N={N}: {int((flips & ~near).sum())} "
+        raise AssertionError(f"vq_assign B={B} N={N} dv={dv}: {int((flips & ~near).sum())} "
                              "indices differ away from near-ties")
     heads = torch.arange(hq, device=dev)
     if not torch.equal(xq.reshape(B, N, hq, dv), cb[heads, idx.long()]):
-        raise AssertionError(f"vq_assign B={B} N={N}: x_q is not bitwise C[idx]")
+        raise AssertionError(f"vq_assign B={B} N={N} dv={dv}: x_q is not bitwise C[idx]")
     xq = xq.reshape(B, N, hq, dv)
     if not torch.equal(xq[~flips], xq_p[~flips]):
-        raise AssertionError(f"vq_assign B={B} N={N}: x_q differs from the plain version")
+        raise AssertionError(f"vq_assign B={B} N={N} dv={dv}: x_q differs from the plain version")
     err = float((xq - xq_p).abs().max())
     kernel = timings(call, kernel="vq_assign_")
     plain = timings(lambda: mod.vq_assign_ref(x.reshape(B, N, hq, dv), cb))
     nbytes = 4 * (2 * x.numel() + cb.numel() + B * N * hq)
     bound_ms, bound_by = bound(nbytes, 2 * B * N * hq * Q * dv)
-    return dict(B=B, N=N, kernels=kernel["kernels"], max_abs_err=err,
+    return dict(B=B, N=N, dv=dv, kernels=kernel["kernels"], max_abs_err=err,
                 near_tie_rows=int(near.sum()), near_tie_flips=int(flips.sum()),
                 ms=kernel["ms"], kernel_ms=kernel["kernel_ms"],
                 call_ms=kernel["call_ms"], plain_ms=plain["ms"],
@@ -549,7 +584,8 @@ def attention_work(BH: int, nq: int, nk: int, dh: int = 64) -> tuple[int, int]:
 
 def check_gated_attention(mod, gen, nq: int, nk: int | None = None, BH=48, dh=64):
     """``gated_attention_bh`` against the plain version, within 1e-5; the
-    bound of the kernel's route (``bound_ms``) and of the FP32 CUDA cores."""
+    bound of the kernel's route (``bound_ms``) and of the FP32 CUDA cores.
+    dh is the head dim of q, k and v (64, 128 or 256)."""
     nk = nq if nk is None else nk
     dev = torch.device("cuda")
     q = torch.randn((BH, nq, dh), generator=gen, device=dev) * 0.5
@@ -565,7 +601,7 @@ def check_gated_attention(mod, gen, nq: int, nk: int | None = None, BH=48, dh=64
     plain = timings(lambda: mod.gated_attention_ref(q, k, v))
     nbytes, flops = attention_work(BH, nq, nk, dh)
     bound_ms, bound_by = bound(nbytes, GA_PRODUCTS * flops, GA_PEAK)
-    return dict(BH=BH, nq=nq, nk=nk, max_abs_err=err, ms=kernel["ms"],
+    return dict(BH=BH, nq=nq, nk=nk, dh=dh, max_abs_err=err, ms=kernel["ms"],
                 kernel_ms=kernel["kernel_ms"], kernels=kernel["kernels"],
                 call_ms=kernel["call_ms"], plain_ms=plain["ms"],
                 plain_call_ms=plain["call_ms"], timing=kernel["timing"],
@@ -574,18 +610,24 @@ def check_gated_attention(mod, gen, nq: int, nk: int | None = None, BH=48, dh=64
                 bound_tc_3xtf32_ms=bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)[0])
 
 
-# BH=48 is the forward's [4, 1024] batch of 12 heads, BH=12 one document;
-# the last two are ragged (nq != nk) both ways
-SWEEP_ATTENTION = (tuple((48, n, n) for n in (37, 128, 256, 512, 1000, 1024, 2048))
-                   + ((12, 1024, 1024), (48, 1024, 512), (48, 512, 1024)))
+# (BH, nq, nk, dh). BH=48 is the VQ-OPT forward's [4, 1024] batch of 12
+# heads, BH=12 one document; then two ragged (nq != nk) both ways; then
+# phi4-mini's forward (24 heads of 128) and gemma3's global layer (16 of
+# 256), each also at a ragged n = 1000
+WIDE_ATTENTION = ((24, 4096, 4096, 128), (24, 1000, 1000, 128),
+                  (16, 3072, 3072, 256), (16, 1000, 1000, 256))
+SWEEP_ATTENTION = (tuple((48, n, n, 64) for n in (37, 128, 256, 512, 1000, 1024, 2048))
+                   + ((12, 1024, 1024, 64), (48, 1024, 512, 64), (48, 512, 1024, 64))
+                   + WIDE_ATTENTION)
 
 
 def sweep_gated_attention(mod, gen) -> None:
-    """``--sweep``: ``gated_attention`` at each (BH, nq, nk) of
+    """``--sweep``: ``gated_attention`` at each (BH, nq, nk, dh) of
     SWEEP_ATTENTION, held against the plain version as in the kernels
     phase; one JSON line a shape."""
-    for BH, nq, nk in SWEEP_ATTENTION:
-        emit("sweep", kernel="gated_attention", **check_gated_attention(mod, gen, nq, nk, BH=BH))
+    for BH, nq, nk, dh in SWEEP_ATTENTION:
+        emit("sweep", kernel="gated_attention",
+             **check_gated_attention(mod, gen, nq, nk, BH=BH, dh=dh))
 
 
 def check_incr_patch(mod, gen, C: int, B=4, n=1024, H=12, dh=64, Q=64):
@@ -727,30 +769,44 @@ def profile_round(srv, batch, names=("fused_step", "incr_patch")) -> dict:
                 top_kernels=prof["top_kernels"])
 
 
-def code_diff(srv_a, srv_b, did: str, vq_bias, tie: float = 1e-5) -> int:
-    """0 when the two servers' codes for ``did`` are equal. Otherwise the
-    earliest layer with a difference must differ only at near-ties (the
-    two paths' top-two scores within ``tie``; later layers inherit the
-    flip) — returns that layer's flip count — else raises."""
-    sa, sb = srv_a.state(did), srv_b.state(did)
-    sb = type(sb)(*(leaf.to(sa.x.device) for leaf in sb))
-    diff = (sa.codes != sb.codes) & sa.valid[None, :, None]
+def first_layer_flips(diff: torch.Tensor, gaps, tie: float, what: str) -> int:
+    """The near-tie rule for two routes' VQ codes: 0 when ``diff`` ([L, ...]
+    bool, where the codes differ) is all False. Otherwise every difference
+    in the earliest layer that has one must be a near tie: ``gaps(layer)``
+    yields each route's top-two score gaps there, shaped like
+    ``diff[layer]``, and a difference is exempt where either lies within
+    ``tie`` (later layers inherit the flip). Returns that layer's count of
+    flips, else raises."""
     if not bool(diff.any()):
         return 0
     first = int(diff.flatten(1).any(-1).nonzero()[0])
+    near = torch.zeros_like(diff[first])
+    for gap in gaps(first):
+        near |= gap.to(near.device) <= tie
+    if bool((diff[first] & ~near).any()):
+        raise AssertionError(f"{what}: codes differ at layer {first} away from near-ties")
+    return int(diff[first].sum())
+
+
+def code_diff(srv_a, srv_b, did: str, vq_bias, tie: float = 1e-5) -> int:
+    """``first_layer_flips`` on the two servers' codes for ``did``, the
+    gaps from each server's own T (its VQ scores)."""
+    sa, sb = srv_a.state(did), srv_b.state(did)
+    sb = type(sb)(*(leaf.to(sa.x.device) for leaf in sb))
+    diff = (sa.codes != sb.codes) & sa.valid[None, :, None]
     hq, Q = vq_bias.shape[1:]
     n = sa.tokens.shape[0]
-    near = torch.zeros_like(diff[first])
-    for st in (sa, sb):
-        causal = ((st.positions[None, :] <= st.positions[:, None]) & st.valid[None, :])
-        counts = causal.float().sum(-1).clamp(min=1.0)
-        s = (st.T[first].reshape(n, hq, -1, Q).sum(2) / counts[:, None, None]
-             + vq_bias[first])
-        top2 = s.topk(2, dim=-1).values
-        near |= (top2[..., 0] - top2[..., 1]) <= tie
-    if bool((diff[first] & ~near).any()):
-        raise AssertionError(f"{did}: codes differ at layer {first} away from near-ties")
-    return int(diff[first].sum())
+
+    def gaps(first):
+        for st in (sa, sb):
+            causal = ((st.positions[None, :] <= st.positions[:, None]) & st.valid[None, :])
+            counts = causal.float().sum(-1).clamp(min=1.0)
+            s = (st.T[first].reshape(n, hq, -1, Q).sum(2) / counts[:, None, None]
+                 + vq_bias[first])
+            top2 = s.topk(2, dim=-1).values
+            yield top2[..., 0] - top2[..., 1]
+
+    return first_layer_flips(diff, gaps, tie, did)
 
 
 def n_layers(cfg) -> int:
@@ -1481,24 +1537,18 @@ class _Layers:
 
 
 def near_tie_flips(eng, a, b, what: str, rows_a=None, rows_b=None) -> int:
-    """0 when the codes of ``a`` and ``b`` (``_Layers`` or slot states read
-    at ``rows_*``) are equal. Otherwise every difference in the earliest
-    layer that has one must be a near tie (top-two scores within
-    ``NEAR_TIE`` on either side; later layers inherit the flip): returns
-    that layer's count of flips, else raises."""
+    """``first_layer_flips`` (within ``NEAR_TIE``) on the codes of ``a`` and
+    ``b`` (``_Layers`` or slot states read at ``rows_*``), the gaps from the
+    op-counting engine's scores of each."""
     ca = a.codes if rows_a is None else a.codes[:, rows_a].cpu()
     cb = b.codes if rows_b is None else b.codes[:, rows_b].cpu()
-    diff = ca != cb  # [L, n, hq]
-    if not bool(diff.any()):
-        return 0
-    first = int(diff.flatten(1).any(-1).nonzero()[0])
-    near = torch.zeros_like(diff[first])
-    for st, rows in ((a, rows_a), (b, rows_b)):
-        top2 = engine_scores(eng, st, first, rows).topk(2, dim=-1).values.cpu()
-        near |= (top2[..., 0] - top2[..., 1]) <= NEAR_TIE
-    if bool((diff[first] & ~near).any()):
-        raise AssertionError(f"{what}: codes differ at layer {first} away from near ties")
-    return int(diff[first].sum())
+
+    def gaps(first):
+        for st, rows in ((a, rows_a), (b, rows_b)):
+            top2 = engine_scores(eng, st, first, rows).topk(2, dim=-1).values.cpu()
+            yield top2[..., 0] - top2[..., 1]
+
+    return first_layer_flips(ca != cb, gaps, NEAR_TIE, what)
 
 
 def incremental_phase(params, cfg, docs: dict, stream, srv, device=None,
@@ -1730,6 +1780,401 @@ def mesh_phase(params, cfg, docs: dict, stream, mesh=None, device=None, n_new: i
                 peak_mem_above_start_bytes=peak, mesh_of_one_bitwise=True)
 
 
+# ------------------------------------------------------------ the families
+
+# the smoke-size families of phase 16 and their sequence lengths (danube's
+# 80 runs past its smoke window of 64, so its ring buffer wraps)
+FAMILY_SMOKE = (("stablelm-1.6b", 32), ("h2o-danube-1.8b", 80), ("internvl2-1b", 32),
+                ("musicgen-large", 32))
+
+
+@contextlib.contextmanager
+def recorded_codes():
+    """Record every ``core.vq.quantize`` call while the block runs: its
+    codes and, per (row, VQ head), the gap between the top two plain
+    scores. Yields the list of (idx, gap) pairs in call order."""
+    from repro_torch.core import vq as vq_mod
+
+    calls = []
+    quantize = vq_mod.quantize
+
+    def rec(params, x):
+        x_q, idx = quantize(params, x)
+        top2 = vq_mod.scores(params, x).topk(2, dim=-1).values
+        calls.append((idx, top2[..., 0] - top2[..., 1]))
+        return x_q, idx
+
+    vq_mod.quantize = rec
+    try:
+        yield calls
+    finally:
+        vq_mod.quantize = quantize
+
+
+@contextlib.contextmanager
+def attention_census():
+    """Count the attention routes of ``models.attention.full_attention``
+    while the block runs: ``gated_attention`` calls by "BHxnxdh" and
+    ``streaming_attention`` calls. Yields the dict that fills."""
+    from repro_torch.models import attention
+
+    census = {"gated_attention": {}, "streaming": 0}
+    kernel, stream = attention.gated_attention, attention.streaming_attention
+
+    def counted_kernel(q, k, v):
+        key = f"{q.shape[0] * q.shape[2]}x{q.shape[1]}x{q.shape[3]}"
+        census["gated_attention"][key] = census["gated_attention"].get(key, 0) + 1
+        return kernel(q, k, v)
+
+    def counted_stream(*a, **kw):
+        census["streaming"] += 1
+        return stream(*a, **kw)
+
+    with mock.patch.object(attention, "gated_attention", counted_kernel), \
+            mock.patch.object(attention, "streaming_attention", counted_stream):
+        yield census
+
+
+def code_flips(fwd: list, route: list, L: int, what: str):
+    """The VQ codes of a forward (``fwd``: one call a layer over all rows)
+    against another route over the same rows (``route``: one call a layer
+    for each chunk or decode step, rows in order), held to
+    ``first_layer_flips`` within NEAR_TIE. Returns the [b, n] rows with any
+    flipped code (None without VQ)."""
+    if not fwd:
+        return None
+    f_idx = torch.stack([c[0] for c in fwd])  # [L, b, n, hq]
+    f_gap = torch.stack([c[1] for c in fwd])
+    r_idx = torch.stack([torch.cat([c[0] for c in route[li::L]], dim=1) for li in range(L)])
+    r_gap = torch.stack([torch.cat([c[1] for c in route[li::L]], dim=1) for li in range(L)])
+    diff = f_idx != r_idx
+    first_layer_flips(diff, lambda first: (f_gap[first], r_gap[first]), NEAR_TIE, what)
+    return diff.any(0).any(-1)
+
+
+def step_profile(fn) -> dict:
+    """One decode step ``fn()`` under torch.profiler: its wall ms, the
+    device's busy ms and idle share, and the 5 kernels that take the most
+    device time."""
+    prof = profiled(fn, ("vq_assign",), top=5)
+    return {k: prof[k] for k in ("wall_ms_profiled", "device_busy_ms", "device_idle_share",
+                                 "top_kernels")}
+
+
+def rows_close(what: str, got: torch.Tensor, want: torch.Tensor, flipped,
+               tol: float = 2e-3) -> dict:
+    """``got`` within atol = rtol = ``tol`` of ``want`` (both [b, m, ...])
+    in every row whose own VQ codes did not flip (``flipped`` [b, m] or
+    None); the reference's prefill / decode bound
+    (``tests/test_models.py:85-89``)."""
+    bad = ((got - want).abs() > tol + tol * want.abs()).flatten(2).any(-1)
+    exempt = torch.zeros_like(bad) if flipped is None else flipped
+    if bool((bad & ~exempt).any()):
+        raise AssertionError(f"{what}: logits differ by {float((got - want).abs().max())} "
+                             f"(atol = rtol = {tol}) in a row without a code flip")
+    keep = ~exempt
+    return dict(max_logits_diff=float((got - want).abs()[keep].max()) if keep.any() else None,
+                near_tie_rows=int(exempt.sum()))
+
+
+def phi4_phase(cfg=None, n: int = 4096, chunk: int = 1024, n_dec: int = 16,
+               device=None) -> dict:
+    """phi4-mini-3.8B with VQT at full width and depth (32 layers, d 3072,
+    24 / 8 heads of 128, vocab 200,064), weights drawn on the card from
+    seed 0: ``forward`` on [1, n] random tokens (``gated_attention`` at
+    BH = 24, n, dh = 128 and ``vq_assign`` once a layer; finite logits),
+    timed and profiled; then ``prefill_step`` of the first n - n_dec
+    tokens in chunks of ``chunk`` and ``n_dec`` ``decode_step``s, whose
+    logits match the forward's last rows within 2e-3 but where a row's own
+    code flipped at a near tie; the same prefill and decode again with no
+    codes recorded, timed, and one more decode step profiled; then the
+    softmax model on the same weights
+    (no VQ leaves, no copy): its forward streams (``flash``) in every layer,
+    and on layer 0's q / k / v ``streaming_attention`` matches
+    ``attention_core`` within 2e-5 (``tests/test_models.py:130-133``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as T
+    from repro_torch.models.embedding import embed_tokens
+    from repro_torch.models.norms import apply_norm
+
+    device = torch.device(device or DEVICE)
+    on_card = device.type == "cuda"
+    cfg = cfg or get_config("phi4-mini-3.8b", vqt=True)
+    L = n_layers(cfg)
+    # device memory (GB): allocated at the start (what earlier phases hold),
+    # then the peak so far after each step
+    peak_gb = lambda: torch.cuda.max_memory_allocated() / 1e9 if on_card else None  # noqa: E731
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    peaks = {"start": torch.cuda.memory_allocated() / 1e9 if on_card else None}
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    peaks["init"] = peak_gb()
+    param_bytes = tensor_bytes(params)  # every leaf f32
+    tokens = torch.randint(0, cfg.vocab, (1, n), device=device,
+                           generator=torch.Generator(device=device).manual_seed(1))
+    pos = torch.arange(n, dtype=torch.int32, device=device)[None]
+
+    reset_launches()
+    with attention_census() as census, recorded_codes() as fwd_codes:
+        t0 = time.perf_counter()
+        logits, _ = T.forward(params, cfg, tokens)
+        sync(device)
+        forward_s = time.perf_counter() - t0
+    launches = launch_counters()[1]()
+    dh = cfg.resolved_head_dim
+    want_shape = {f"{cfg.n_heads}x{n}x{dh}": L}
+    if (launches["gated_attention"] != L or launches["vq_assign"] != L
+            or census["gated_attention"] != want_shape or census["streaming"]):
+        raise AssertionError(f"families: phi4 forward launched {launches} with attention "
+                             f"routes {census} (expected {want_shape} and {L} vq_assign)")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("families: phi4 forward logits are not finite")
+    want = logits[:, n - n_dec:].clone()
+    del logits
+    peaks["forward"] = peak_gb()
+    call = lambda: T.forward(params, cfg, tokens)  # noqa: E731
+    ms = time_ms(call, warmup=1, iters=3)
+    prof = profiled(call, ("gated_attention", "vq_assign"), top=5)
+    peaks["timed_forwards"] = peak_gb()
+
+    # prefill and decode with their VQ codes recorded, for the gates
+    caches = T.init_caches(cfg, 1, n, device=device)
+    with recorded_codes() as route_codes:
+        for s in range(0, n - n_dec, chunk):
+            e = min(s + chunk, n - n_dec)
+            _, caches = T.prefill_step(params, cfg, tokens[:, s:e], caches, pos[:, s:e])
+        got = []
+        for i in range(n - n_dec, n):
+            step, caches = T.decode_step(params, cfg, tokens[:, i:i + 1], caches, pos[:, i:i + 1])
+            got.append(step)
+    peaks["prefill_decode"] = peak_gb()
+    del caches
+    flipped = code_flips(fwd_codes, route_codes, L, "families: phi4 prefill/decode")
+    dec = rows_close("families: phi4 prefill/decode", torch.cat(got, dim=1), want,
+                     None if flipped is None else flipped[:, n - n_dec:])
+    del got, fwd_codes, route_codes
+    # the same again with nothing recorded, timed; the cache has one slot
+    # more for one decode step under torch.profiler
+    caches = T.init_caches(cfg, 1, n + 1, device=device)
+    sync(device)
+    t0 = time.perf_counter()
+    for s in range(0, n - n_dec, chunk):
+        e = min(s + chunk, n - n_dec)
+        _, caches = T.prefill_step(params, cfg, tokens[:, s:e], caches, pos[:, s:e])
+    sync(device)
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(n - n_dec, n):
+        _, caches = T.decode_step(params, cfg, tokens[:, i:i + 1], caches, pos[:, i:i + 1])
+    sync(device)
+    decode_s = time.perf_counter() - t0
+    step_prof = step_profile(lambda: T.decode_step(params, cfg, tokens[:, -1:], caches,
+                                                   pos[:, -1:] + 1))
+    del caches
+
+    # the softmax model on the same weights: the VQ leaves left out, no copy
+    soft_cfg = dataclasses.replace(cfg, attn_softmax=True, vqt=None)
+    soft = dict(params, stages=[
+        tuple(dict(lp, mixer={k: t for k, t in lp["mixer"].items() if k != "vq"}) for lp in st)
+        for st in params["stages"]])
+    reset_launches()
+    with attention_census() as soft_census:
+        t0 = time.perf_counter()
+        logits, _ = T.forward(soft, soft_cfg, tokens)
+        sync(device)
+        soft_s = time.perf_counter() - t0
+    soft_launches = launch_counters()[1]()
+    if (soft_census["streaming"] != L or soft_census["gated_attention"]
+            or soft_launches["vq_assign"] or soft_launches["gated_attention"]):
+        raise AssertionError(f"families: phi4 softmax forward took routes {soft_census} "
+                             f"and launched {soft_launches} (expected {L} streamed layers)")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("families: phi4 softmax logits are not finite")
+    del logits
+    peaks["softmax_forward"] = peak_gb()
+    lp = T._index(soft["stages"][0], 0)[0]
+    h = apply_norm(soft_cfg.norm, lp["norm1"], embed_tokens(soft["embed"], soft_cfg, tokens, pos))
+    q, k, v = attention._qkv(lp["mixer"], soft_cfg, h, pos)
+    stream = attention.streaming_attention(q, k, v, causal=True, softmax=True)
+    dense = attention.attention_core(q, k, v, attention.make_mask(
+        n, n, causal=True, window=None, device=device), softmax=True)
+    stream_err = float((stream - dense).abs().max())
+    if not torch.allclose(stream, dense, atol=2e-5, rtol=2e-5):
+        raise AssertionError(f"families: phi4 layer 0 streaming attention differs from the "
+                             f"dense core by {stream_err} (atol = rtol = 2e-5)")
+    del q, k, v, stream, dense, h, soft
+    peaks["layer0_dense_check"] = peak_gb()
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(model=cfg.name, layers=L, d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+                head_dim=dh, vocab=cfg.vocab, params=param_bytes // 4, param_bytes=param_bytes,
+                tokens=n, init_params_s=init_s, init_on=str(device), first_forward_s=forward_s,
+                ms_per_forward=ms, tokens_per_s=n / (ms / 1e3),
+                launches={k: launches[k] for k in ("gated_attention", "vq_assign")},
+                attention_routes=census, profile=dict(
+                    device_busy_ms=prof["device_busy_ms"], wall_ms_profiled=prof["wall_ms_profiled"],
+                    device_idle_share=prof["device_idle_share"], kernels=prof["kernels"],
+                    top_kernels=prof["top_kernels"]),
+                prefill=dict(tokens=n - n_dec, chunk=chunk, seconds=prefill_s),
+                decode=dict(steps=n_dec, seconds=decode_s, ms_per_step=decode_s / n_dec * 1e3,
+                            step_profile=step_prof, **dec),
+                softmax=dict(seconds=soft_s, attention_routes=soft_census,
+                             layer0_streaming_vs_dense_max_abs_err=stream_err),
+                mem_gb=peaks)
+
+
+def gemma3_phase(cfg=None, n_fwd: int = 3072, n_dec: int = 1100, device=None) -> dict:
+    """gemma3-12b with VQT at full width (d 3840, 16 / 8 heads of 256,
+    d_ff 15,360, vocab 262,144, tied), depth cut to one 5-local : 1-global
+    pattern (6 layers). ``forward`` on [1, n_fwd]: the five windowed σ
+    layers stream, the global one launches ``gated_attention`` at dh = 256;
+    then ``decode_step`` token by token over n_dec tokens, past the
+    1024-slot ring of the local layers: its last logits match a [1, n_dec]
+    forward within 2e-3 unless the row's own code flipped at a near tie;
+    the decode again with no codes recorded, timed, and one more step
+    profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    device = torch.device(device or DEVICE)
+    if cfg is None:
+        full = get_config("gemma3-12b", vqt=True)
+        pattern = full.stages[0][0]
+        cfg = dataclasses.replace(full, n_layers=len(pattern),
+                                  stages=((pattern, 1),)).validate()
+    L = n_layers(cfg)
+    n_local = sum(layer.window is not None for layer in cfg.layer_list())
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 1e9 if on_card else None
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    param_bytes = tensor_bytes(params)  # every leaf f32
+    tokens = torch.randint(0, cfg.vocab, (1, n_fwd), device=device,
+                           generator=torch.Generator(device=device).manual_seed(1))
+    reset_launches()
+    with attention_census() as census:
+        t0 = time.perf_counter()
+        logits, _ = T.forward(params, cfg, tokens)
+        sync(device)
+        forward_s = time.perf_counter() - t0
+    launches = launch_counters()[1]()
+    dh = cfg.resolved_head_dim
+    want_shape = {f"{cfg.n_heads}x{n_fwd}x{dh}": L - n_local}
+    if (census["gated_attention"] != want_shape or launches["gated_attention"] != L - n_local
+            or census["streaming"] != n_local or launches["vq_assign"] != L):
+        raise AssertionError(f"families: gemma3 forward launched {launches} with attention "
+                             f"routes {census} (expected {want_shape}, {n_local} streamed)")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("families: gemma3 forward logits are not finite")
+    del logits
+    ms = time_ms(lambda: T.forward(params, cfg, tokens), warmup=1, iters=3)
+
+    toks = tokens[:, :n_dec]
+    with recorded_codes() as fwd_codes:
+        want = T.forward(params, cfg, toks)[0][:, -1:]
+    caches = T.init_caches(cfg, 1, n_dec, device=device)
+    ring = [c["mix"]["k"].shape[2] for st in caches for c in st]
+    with recorded_codes() as route_codes:
+        for i in range(n_dec):
+            step, caches = T.decode_step(params, cfg, toks[:, i:i + 1], caches,
+                                         torch.full((1, 1), i, dtype=torch.int32, device=device))
+    flipped = code_flips(fwd_codes, route_codes, L, "families: gemma3 decode")
+    dec = rows_close("families: gemma3 decode", step, want,
+                     None if flipped is None else flipped[:, -1:])
+    del caches, fwd_codes, route_codes
+    # the same again with nothing recorded, timed, and one more step profiled
+    caches = T.init_caches(cfg, 1, n_dec + 1, device=device)
+    sync(device)
+    t0 = time.perf_counter()
+    for i in range(n_dec):
+        _, caches = T.decode_step(params, cfg, toks[:, i:i + 1], caches,
+                                  torch.full((1, 1), i, dtype=torch.int32, device=device))
+    sync(device)
+    decode_s = time.perf_counter() - t0
+    step_prof = step_profile(lambda: T.decode_step(
+        params, cfg, toks[:, -1:], caches,
+        torch.full((1, 1), n_dec, dtype=torch.int32, device=device)))
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    del params, caches
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(model=cfg.name, layers=L, reduced="depth 48 -> 6: one 5-local : 1-global pattern",
+                d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=dh,
+                vocab=cfg.vocab, params=param_bytes // 4, param_bytes=param_bytes, tokens=n_fwd,
+                init_params_s=init_s, first_forward_s=forward_s, ms_per_forward=ms,
+                tokens_per_s=n_fwd / (ms / 1e3),
+                launches={k: launches[k] for k in ("gated_attention", "vq_assign")},
+                attention_routes=census, cache_slots=ring,
+                decode=dict(steps=n_dec, seconds=decode_s, ms_per_step=decode_s / n_dec * 1e3,
+                            step_profile=step_prof, **dec),
+                mem_gb=dict(start=start_gb, peak=peak))
+
+
+def smoke_families(device=None, families=FAMILY_SMOKE) -> dict:
+    """stablelm, h2o-danube, internvl2 (8 patch embeddings) and musicgen (4
+    codebooks) at smoke size, both variants, seeded weights: the forward's
+    routes (``gated_attention`` once an unwindowed σ layer, ``vq_assign``
+    once a VQ layer), and token-by-token decode whose last logits match the
+    forward within 2e-3 unless a code flipped at a near tie (internvl2 on
+    its text, after a finite forward with its vision prefix)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    device = torch.device(device or DEVICE)
+    out = {}
+    for arch, n in families:
+        for vqt in (False, True):
+            cfg = get_config(arch, smoke=True, vqt=vqt)
+            params = T.init_params(cfg, generator=torch.Generator().manual_seed(0), device=device)
+            gen = torch.Generator().manual_seed(1)
+            b = 2
+            shape = (b, n, cfg.n_codebooks) if cfg.n_codebooks > 1 else (b, n)
+            toks = torch.randint(0, cfg.vocab, shape, generator=gen).to(device)
+            step_ids = torch.arange(n, dtype=torch.int32)[None].repeat(b, 1)
+            pos = (step_ids * 3 if cfg.pos in ("learned", "sampled") else step_ids).to(device)
+            res = {}
+            if cfg.input_mode == "vlm":
+                patches = torch.randn((b, 8, cfg.d_model), generator=gen).to(device)
+                lg, _ = T.forward(params, cfg, toks, pos, patch_embeds=patches)
+                if lg.shape != (b, 8 + n, cfg.vocab) or not bool(torch.isfinite(lg).all()):
+                    raise AssertionError(f"families: {arch} vision forward gave {tuple(lg.shape)}")
+                res["vision_logits"] = list(lg.shape)
+                cfg = dataclasses.replace(cfg, input_mode="tokens")
+            reset_launches()
+            with recorded_codes() as fwd_codes:
+                full, _ = T.forward(params, cfg, toks, pos)
+            launches = launch_counters()[1]()
+            sigma_global = sum(layer.window is None for layer in cfg.layer_list()) if vqt else 0
+            want = dict(gated_attention=sigma_global, vq_assign=n_layers(cfg) if vqt else 0)
+            if {k: launches[k] for k in want} != want:
+                raise AssertionError(f"families: {arch} vqt={vqt} forward launched "
+                                     f"{launches} (expected {want})")
+            if not bool(torch.isfinite(full).all()):
+                raise AssertionError(f"families: {arch} vqt={vqt} logits are not finite")
+            caches = T.init_caches(cfg, b, n, device=device)
+            with recorded_codes() as route_codes:
+                for i in range(n):
+                    step, caches = T.decode_step(params, cfg, toks[:, i:i + 1], caches,
+                                                 pos[:, i:i + 1])
+            what = f"families: {arch} vqt={vqt} decode"
+            flipped = code_flips(fwd_codes, route_codes, n_layers(cfg), what)
+            res.update(tokens=n, launches=want, **rows_close(
+                what, step, full[:, -1:], None if flipped is None else flipped[:, -1:]))
+            out[f"{arch}{'+vqt' if vqt else ''}"] = res
+    return out
+
+
 SWEEPS = ("delta_gate", "vq_assign", "patch", "gated_attention")
 
 
@@ -1792,7 +2237,10 @@ def main() -> int:
     gates = [check_delta_gate(ops, ref, gen, r, timed=True) for r in SWEEP_GATE[:-1]]
     floor = launch_floor()
     vqs = [check_vq_assign(vqk, gen, B, N) for B, N in ((4, 1024), (1, 1024), (1, 32), (1, 1))]
+    vqs += [check_vq_assign(vqk, gen, 1, N, dv=dv) for N, dv in FAMILY_VQ]
     gas = [check_gated_attention(gak, gen, n) for n in (1024, 1000, 37)]
+    gas += [check_gated_attention(gak, gen, nq, nk, BH=BH, dh=dh)
+            for BH, nq, nk, dh in WIDE_ATTENTION]
     ips = [check_incr_patch(ipk, gen, C) for C in (8, 72, 264)]
     ips.append(check_incr_patch(ipk, gen, 1032, B=1))  # the most served step
     emit("kernels", seconds=time.perf_counter() - t0, fused_step=fused,
@@ -1941,6 +2389,14 @@ def main() -> int:
     msh = mesh_phase(params, cfg, docs, stream)
     emit("mesh", seconds=time.perf_counter() - t0, nvidia_smi=smi, **msh)
 
+    # ---- 16. families: the dense-attention model families
+    t0 = time.perf_counter()
+    del srv
+    gc.collect()  # the earlier phases' servers, held in reference cycles
+    torch.cuda.empty_cache()
+    fam = dict(phi4=phi4_phase(), gemma3=gemma3_phase(), smoke=smoke_families())
+    emit("families", seconds=time.perf_counter() - t0, nvidia_smi=smi, **fam)
+
     # ---- summary
     c72 = next(f for f in fused if f["C"] == 72 and f["mask"] == "random")
     r_top = max(gate_rows, key=gate_rows.get)  # the most served r
@@ -1962,8 +2418,8 @@ def main() -> int:
              bound_ms=gate_top["bound_ms"], bound_by=gate_top["bound_by"],
              library_ms=None, r=r_top, launch_floor_ms=floor["ms"]),
     ]
-    vq1024 = next(v for v in vqs if v["B"] == 1 and v["N"] == 1024)  # a prefill chunk
-    ga1024 = next(g for g in gas if g["nq"] == 1024)
+    vq1024 = next(v for v in vqs if v["B"] == 1 and v["N"] == 1024 and v["dv"] == 384)
+    ga1024 = next(g for g in gas if g["nq"] == 1024 and g["dh"] == 64)
     ip72 = next(i for i in ips if i["B"] == 4 and i["C"] == 72)
     for name, src, tpu, launches, errs, row in (
             ("vq_assign", "vq_assign.cu", "vq_assign/vq_assign.py:61",
@@ -1979,9 +2435,25 @@ def main() -> int:
             max_abs_err=max(e["max_abs_err"] for e in errs), ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None))
+    # the families' shapes: launches from the phase 16 forwards (one phi4
+    # forward, one gemma3 pattern forward)
+    family_launches = {128: fam["phi4"]["launches"]["gated_attention"],
+                       256: fam["gemma3"]["launches"]["gated_attention"]}
+    wide = [dict(dh=g["dh"], BH=g["BH"], n=g["nq"], launches=family_launches[g["dh"]],
+                 max_abs_err=g["max_abs_err"], ms=g["ms"], plain_ms=g["plain_ms"],
+                 bound_ms=g["bound_ms"], bound_by=g["bound_by"], library_ms=None)
+            for g in gas if g["dh"] != 64 and g["nq"] != 1000]
     next(k for k in kernels if k["name"] == "gated_attention").update(
         cores=GA_CORES, bound_fp32_ms=ga1024["bound_fp32_ms"],
-        bound_tc_3xtf32_ms=ga1024["bound_tc_3xtf32_ms"])
+        bound_tc_3xtf32_ms=ga1024["bound_tc_3xtf32_ms"], head_dims=wide)
+    # the families' forwards: one phi4 forward (dv 1536), one gemma3 pattern
+    # forward (dv 2048)
+    for dv, N, model in ((1536, 4096, "phi4"), (2048, 3072, "gemma3")):
+        row = next(v for v in vqs if v["dv"] == dv and v["N"] == N)
+        next(k for k in kernels if k["name"] == "vq_assign")[f"dv{dv}"] = dict(
+            N=N, launches=fam[model]["launches"]["vq_assign"],
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

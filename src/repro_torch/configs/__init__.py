@@ -1,24 +1,46 @@
-"""Architecture registry of the port. Only the paper's own model is ported
-(``vq_opt_125m``); the reference's other architectures raise until their
-model families land."""
+"""Architecture registry of the port: the paper's own model
+(``vq_opt_125m``) and the reference's dense-attention families. Each module
+has ``config()`` (full size, the reference's values) and ``smoke_config()``
+(reduced, for CPU tests). The recurrent and MLA/MoE architectures raise
+until their families land (ROADMAP Queue A items 9b and 9c)."""
 from __future__ import annotations
 
-from repro_torch.configs import vq_opt_125m
+import importlib
 
-_ARCHS = {"vq-opt-125m": vq_opt_125m, "vq_opt_125m": vq_opt_125m}
+# the reference's names (``repro/configs/__init__.py``) -> port modules
+_ALIASES = {
+    "gemma3-12b": "gemma3_12b",
+    "internvl2-1b": "internvl2_1b",
+    "musicgen-large": "musicgen_large",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "vq-opt-125m": "vq_opt_125m",
+}
+
+# modules of later slices -> the ROADMAP Queue A item that ports them
+_LATER = {
+    "deepseek_v2_236b": "9c (MLA and MoE)",
+    "deepseek_v3_671b": "9c (MLA and MoE)",
+    "hymba_1_5b": "9b (recurrent families)",
+    "rwkv6_7b": "9b (recurrent families)",
+}
 
 
 def get_config(name: str, smoke: bool = False, **kwargs):
-    """``config()`` or ``smoke_config()`` of ``name``; kwargs are forwarded
-    (e.g. ``vqt=True``)."""
-    mod = _ARCHS.get(name)
-    if mod is None:
+    """``config()`` or ``smoke_config()`` of ``name`` (the reference's name
+    or its module name); kwargs are forwarded (e.g. ``vqt=True``)."""
+    mod_name = _ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
+    if mod_name in _LATER:
         raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (the port serves "
-            "vq-opt-125m; the other model families come with ROADMAP Queue A "
-            "item 9)")
+            f"architecture {name!r} is not ported yet: it comes with ROADMAP Queue A "
+            f"item {_LATER[mod_name]}")
+    if mod_name not in _ALIASES.values():
+        raise ValueError(f"unknown architecture {name!r}; known: {all_arch_names()}")
+    mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.smoke_config(**kwargs) if smoke else mod.config(**kwargs)
 
 
 def all_arch_names() -> list[str]:
-    return ["vq-opt-125m"]
+    """The architectures the port serves (reference names)."""
+    return list(_ALIASES)

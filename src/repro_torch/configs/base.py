@@ -1,6 +1,8 @@
 """Architecture configuration schema — the subset of ``repro/configs/base.py``
-the VQ-Transformer serving path needs (``ArchConfig``, ``LayerCfg``,
-``uniform_stages``, ``reduce_for_smoke``).
+the dense-attention families need (``ArchConfig``, ``LayerCfg``,
+``uniform_stages``, ``reduce_for_smoke``). The MoE, MLA, SSM and RWKV
+sub-configs and ``mtp`` come with the recurrent and MLA/MoE families
+(ROADMAP Queue A items 9b and 9c).
 
 The reference module imports ``core/vq`` and through it jax, so the port
 keeps its own copy. Field names and defaults match the reference so one
@@ -20,7 +22,7 @@ from repro_torch.core.vq import VQConfig
 @dataclass(frozen=True)
 class LayerCfg:
     mixer: str  # 'gqa' is the only mixer the port serves so far
-    ffn: str  # 'gelu' | 'relu' | 'relu2' | ...
+    ffn: str  # 'swiglu' | 'geglu' | 'gelu' | 'relu' | 'relu2'
     window: Optional[int] = None  # sliding-window size; None = global
 
 
@@ -44,6 +46,10 @@ class ArchConfig:
     attn_softmax: bool = True  # False -> element-wise σ (VQT, paper eq. 1)
     attn_bias: bool = False
     vqt: Optional[VQConfig] = None
+    # multimodal stubs: 'tokens' | 'audio_codes' | 'vlm'
+    input_mode: str = "tokens"
+    n_codebooks: int = 1  # musicgen: 4 parallel EnCodec streams
+    n_patches: int = 256  # vlm: stub patch-embedding count
     tie_embeddings: bool = False
     # citation for the config values
     source: str = ""
@@ -75,7 +81,7 @@ def reduce_for_smoke(cfg: ArchConfig, *, d_model: int = 256, n_layers: int = 2,
                      n_heads: int = 4, n_kv_heads: int = 2, d_ff: int = 512,
                      vocab: int = 512, max_seq: int = 128) -> ArchConfig:
     """Produce a reduced same-family variant (<=2 layers, d<=512), exactly
-    as the reference does for the dense VQT family."""
+    as the reference does for the dense families."""
     changes = dict(
         name=cfg.name + "-smoke",
         d_model=d_model,

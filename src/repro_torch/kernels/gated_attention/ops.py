@@ -20,10 +20,10 @@ from repro_torch.kernels.gated_attention.ref import gated_attention_ref
 
 LAUNCHES = {"gated_attention": 0}
 
-_DH = 64  # the head dim (of q, k and v) the kernel is instantiated for
+HEAD_DIMS = (64, 128, 256)  # the head dims (of q, k and v) the kernel is instantiated for
 _MAX_BH = 65535  # batch-heads a launch takes
-# gated_attention_launch(q, k, v, o, BH, nq, nk, scale, stream)
-ARGTYPES = [PTR] * 4 + [INT] * 3 + [FLOAT, PTR]
+# gated_attention_launch(q, k, v, o, BH, nq, nk, dh, scale, stream)
+ARGTYPES = [PTR] * 4 + [INT] * 4 + [FLOAT, PTR]
 
 
 def reset_launches() -> None:
@@ -39,8 +39,9 @@ def gated_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
     require_cuda("gated_attention", q)
     BH, nq, dh = q.shape
     nk, dv = k.shape[1], v.shape[-1]
-    if dh != _DH or dv != _DH:
-        raise ValueError(f"the gated_attention kernel takes dh=dv=64, got dh={dh} dv={dv}")
+    if dh not in HEAD_DIMS or dv != dh:
+        raise ValueError(f"the gated_attention kernel takes dh=dv in {HEAD_DIMS}, "
+                         f"got dh={dh} dv={dv}")
     if nk < 1:
         raise ValueError("gated_attention needs nk >= 1")
     if BH > _MAX_BH:
@@ -56,7 +57,7 @@ def gated_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
     fn = bind("gated_attention", "gated_attention_launch", ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, nq,
-                 nk, float(dh ** -0.5), stream_of(dev))
+                 nk, dh, float(dh ** -0.5), stream_of(dev))
     raise_on_error("gated_attention", err)
     LAUNCHES["gated_attention"] += 1
     return out

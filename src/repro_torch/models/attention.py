@@ -1,18 +1,19 @@
-"""Attention for the VQ-Transformer — the VQT/OPT subset of
-``repro/models/attention.py``: element-wise σ attention (paper eq. 1) or
-softmax, the VQ hook on the concatenated head outputs (before the mixing
-projection, paper §3), and the KV-cache prefill / decode steps the
-suggestion path runs.
+"""GQA attention — the port of ``repro/models/attention.py``: RoPE, sliding
+windows, softmax or the paper's element-wise σ attention (eq. 1), the VQ
+hook on the concatenated head outputs (before the mixing projection, paper
+§3), and the KV-cache prefill / decode steps (full caches, and ring buffers
+for windowed layers).
 
 σ-attention normalization: each output row is divided by the number of
 positions it attends, which keeps magnitudes independent of the sequence
 length and stays incrementally patchable.
 
-Routing as in the reference (``attention.py:131-143``): a σ-causal,
-unwindowed, unpadded ``full_attention`` runs the ``gated_attention`` kernel
-(its plain version on CPU tensors); every other case runs the dense
-``attention_core``. The streaming long-sequence path (``models/flash.py``),
-RoPE and windowed (ring) KV caches are later slices and raise here.
+Routing as in the reference with ``USE_PALLAS_SIGMA`` on
+(``attention.py:131-143``): a σ-causal, unwindowed, unpadded
+``full_attention`` runs the ``gated_attention`` kernel (its plain version
+on CPU tensors); otherwise a sequence longer than ``STREAM_THRESHOLD``
+takes ``flash.streaming_attention``; every other case runs the dense
+``attention_core``.
 """
 from __future__ import annotations
 
@@ -25,23 +26,32 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, LayerCfg
 from repro_torch.core import vq as vq_mod
 from repro_torch.kernels.gated_attention import gated_attention
+from repro_torch.models.flash import streaming_attention
 
-# sequences longer than this take the streaming path in the reference
+# sequences longer than this take the streaming path; a module attribute so
+# tests can force either path and compare
 STREAM_THRESHOLD = 2048
 
 
-def _no_rope(cfg: ArchConfig) -> None:
-    if cfg.pos == "rope":
-        raise NotImplementedError("RoPE comes with the port's model-family slice")
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
 
 
-def _no_window(layer: LayerCfg) -> None:
-    if layer.window is not None:
-        raise NotImplementedError(
-            "windowed (ring) KV caches come with the port's model-family slice")
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding of the two halves of the head dim. x: [b, n, h, dh];
+    positions: [b, n] ints."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # [dh/2]
+    angles = positions[..., None].to(torch.float32) * freqs  # [b, n, dh/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
-def _qkv(params: dict, cfg: ArchConfig, x: torch.Tensor):
+def _qkv(params: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+    """q [b, n, H, dh], k and v [b, n, Hkv, dh]; q and k rotated under RoPE."""
     b, n, _ = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = x @ params["wq"]
@@ -49,7 +59,11 @@ def _qkv(params: dict, cfg: ArchConfig, x: torch.Tensor):
     v = x @ params["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    return q.reshape(b, n, H, dh), k.reshape(b, n, Hkv, dh), v.reshape(b, n, Hkv, dh)
+    q, k, v = q.reshape(b, n, H, dh), k.reshape(b, n, Hkv, dh), v.reshape(b, n, Hkv, dh)
+    if cfg.pos == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
 
 def sigma_attn_weights(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -83,14 +97,13 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    softmax: bool = True,
                    valid_k: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention over a full sequence: the σ kernel for the VQT case,
-    else the dense core. q: [b, n, H, dh]; k, v: [b, n, Hkv, dh]."""
+    else the streaming KV-block path for long sequences (no [n, n] score
+    tensor), else the dense core. q: [b, n, H, dh]; k, v: [b, n, Hkv, dh]."""
     n = q.shape[1]
     if not softmax and causal and window is None and valid_k is None:
         return gated_attention(q, k, v)
     if n > STREAM_THRESHOLD and valid_k is None:
-        raise NotImplementedError(
-            f"n={n} > STREAM_THRESHOLD={STREAM_THRESHOLD}: the streaming path "
-            "(models/flash.py) comes with a later slice of the port")
+        return streaming_attention(q, k, v, causal=causal, window=window, softmax=softmax)
     mask = make_mask(n, k.shape[1], causal=causal, window=window,
                      valid_k=valid_k, device=q.device)
     return attention_core(q, k, v, mask, softmax=softmax)
@@ -131,8 +144,7 @@ def attn_apply(params: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
     vq aux loss — 0 at inference)."""
     if train:
         raise NotImplementedError("training-mode VQ comes with the training slice")
-    _no_rope(cfg)
-    q, k, v = _qkv(params, cfg, x)
+    q, k, v = _qkv(params, cfg, x, positions)
     o = full_attention(q, k, v, causal=True, window=layer.window,
                        softmax=cfg.attn_softmax)
     return _project_out(params, o), torch.zeros((), device=x.device)
@@ -156,13 +168,18 @@ def attn_decode_core(cfg: ArchConfig, layer: LayerCfg, q: torch.Tensor,
                      cache: dict) -> tuple[torch.Tensor, dict]:
     """Cache update + attention for one decode token. q: [b, 1, H, dh];
     k_new/v_new: [b, 1, Hkv, dh]; cache {"k", "v": [b, S, Hkv, dh],
-    "len": [b] int32}. Returns (out [b, 1, H·dh], new_cache)."""
-    _no_window(layer)
+    "len": [b] int32}. For windowed layers S is the window (or the sequence,
+    if shorter) and writes wrap: a ring buffer. Returns (out [b, 1, H·dh],
+    new_cache)."""
     S = cache["k"].shape[1]
     cache_len = cache["len"]
-    slot = torch.clamp(cache_len, max=S - 1)
+    if layer.window is not None:
+        slot = cache_len % S  # ring buffer
+    else:
+        slot = torch.clamp(cache_len, max=S - 1)
     k = _write_rows(cache["k"], k_new, slot)
     v = _write_rows(cache["v"], v_new, slot)
+    # slot j holds a real token iff j < len + 1 (a ring: all, once len + 1 >= S)
     ki = torch.arange(S, device=q.device)[None, :]
     valid = ki < torch.clamp(cache_len + 1, max=S)[:, None]
     mask = valid[:, None, None, :].to(torch.float32)
@@ -175,8 +192,7 @@ def attn_decode(params: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
     """One-token decode step against a KV cache. x: [b, 1, d]."""
     if x.shape[1] != 1:
         raise ValueError("a decode step processes one new token")
-    _no_rope(cfg)
-    q, k_new, v_new = _qkv(params, cfg, x)
+    q, k_new, v_new = _qkv(params, cfg, x, positions)
     o, new_cache = attn_decode_core(cfg, layer, q, k_new, v_new, cache)
     return _project_out(params, o), new_cache
 
@@ -189,9 +205,10 @@ def attn_prefill(params: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor
     ``len + m <= S`` (the write is clamped like the reference's
     ``dynamic_update_slice``, which would corrupt the cache)."""
     m = x.shape[1]
-    _no_window(layer)
-    _no_rope(cfg)
-    q, k_new, v_new = _qkv(params, cfg, x)
+    if layer.window is not None:
+        raise ValueError("chunked prefill requires a non-windowed layer "
+                         "(ring caches only support one-token decode)")
+    q, k_new, v_new = _qkv(params, cfg, x, positions)
     S = cache["k"].shape[1]
     start = cache["len"]
     k = _write_rows(cache["k"], k_new, start)
@@ -205,13 +222,14 @@ def attn_prefill(params: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor
 
 def attn_cache_init(cfg: ArchConfig, layer: LayerCfg, batch: int, seq_len: int,
                     dtype=torch.float32, device="cuda") -> dict:
-    """Zero KV cache of one layer. The reference defaults to bf16; the port
-    serves f32 caches only so far, so f32 is its default."""
-    _no_window(layer)
+    """Zero KV cache of one layer: ``seq_len`` slots, or a ring of
+    ``min(window, seq_len)`` for a windowed layer. The reference defaults to
+    bf16; the port serves f32 caches only so far, so f32 is its default."""
     device = resolve_device(device)
+    S = min(layer.window, seq_len) if layer.window is not None else seq_len
     Hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     return {
-        "k": torch.zeros((batch, seq_len, Hkv, dh), dtype=dtype, device=device),
-        "v": torch.zeros((batch, seq_len, Hkv, dh), dtype=dtype, device=device),
+        "k": torch.zeros((batch, S, Hkv, dh), dtype=dtype, device=device),
+        "v": torch.zeros((batch, S, Hkv, dh), dtype=dtype, device=device),
         "len": torch.zeros((batch,), dtype=torch.int32, device=device),
     }

@@ -1,6 +1,6 @@
 """Token and absolute positional embeddings (learned, and the paper's
-sampled positions) — ``embed_tokens`` of ``repro/models/embedding.py`` for
-single-codebook tokens."""
+sampled positions), multi-codebook audio tokens and the vision prefix —
+``embed_tokens`` and ``merge_vision`` of ``repro/models/embedding.py``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,11 +12,25 @@ from repro_torch.configs.base import ArchConfig
 
 def embed_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens: [b, n] ints; positions: [b, n] absolute ids (required for
-    ``pos`` in ("learned", "sampled")). Returns [b, n, d]."""
-    x = params["tok"][tokens.long()]
+    """tokens: [b, n] ints (audio: [b, n, n_codebooks], summed over the
+    codebooks' tables ``tok`` [cb, vocab, d]); positions: [b, n] absolute
+    ids (required for ``pos`` in ("learned", "sampled")). Returns
+    [b, n, d]."""
+    if cfg.n_codebooks > 1:
+        if tokens.dim() != 3:
+            raise ValueError("audio tokens must be [b, n, n_codebooks]")
+        x = sum(params["tok"][c][tokens[..., c].long()] for c in range(cfg.n_codebooks))
+    else:
+        x = params["tok"][tokens.long()]
     if cfg.pos in ("learned", "sampled"):
         if positions is None:
             raise ValueError(f"pos={cfg.pos} needs explicit position ids")
         x = x + params["pos"][positions.long()]
     return x
+
+
+def merge_vision(params: dict, patch_embeds: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Prefix the (stub) vision patch embeddings [b, n_patches, d], projected
+    by ``vis_proj``, to the token stream [b, n, d] (VLM)."""
+    vis = patch_embeds @ params["vis_proj"]
+    return torch.cat([vis.to(x.dtype), x], dim=1)

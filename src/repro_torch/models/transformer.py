@@ -1,5 +1,7 @@
-"""The decoder stack — the port of ``repro/models/transformer.py`` for
-OPT-style (GQA attention + dense FFN) stacks over plain tokens.
+"""The decoder stack — the port of ``repro/models/transformer.py`` for GQA
+attention stacks: the paper's VQ-OPT and the dense-attention families
+(RMSNorm or LayerNorm, RoPE or absolute positions, sliding windows, gated
+or biased FFNs, vision prefixes, multi-codebook audio tokens).
 
 A model is a sequence of *stages* ``(pattern, repeat)`` (see
 ``configs.base``). Parameters of a stage are stacked along a leading
@@ -10,23 +12,28 @@ Entry points:
   * ``init_params``  — random parameters in the reference layout (drawn
     from a ``torch.Generator``, so they differ from ``jax.random``'s);
     ``params_from_numpy`` carries the reference's own weights across;
-  * ``forward``      — inference over [b, n] tokens (σ attention through the
-    ``gated_attention`` kernel, VQ through ``vq_assign``);
+  * ``forward``      — inference over [b, n] tokens ([b, n, cb] audio
+    codes; vision patch embeddings prefixed for VLMs): σ attention through
+    the ``gated_attention`` kernel, VQ through ``vq_assign``;
   * ``prefill_step`` / ``decode_step`` — m tokens / one token per sequence
-    against per-layer KV caches (``init_caches``, ``caches_from_kv``,
-    ``set_cache_length``), the suggestion path.
+    against per-layer KV caches (``init_caches``: full caches, ring buffers
+    for windowed layers; ``caches_from_kv``, ``set_cache_length``).
 
-Training, multi-token prediction and vision inputs come with later slices.
+Training, multi-token prediction and the MLA, MoE and recurrent mixers
+come with later slices (ROADMAP Queue A items 9b, 9c and 10).
 
 Parameter layout::
 
-    embed.tok [vocab, d], embed.pos [pool, d]
-    final_norm.{scale, bias} [d]
+    embed.tok [vocab, d] ([cb, vocab, d] for audio), embed.pos [pool, d]
+        (learned / sampled positions only), embed.vis_proj [d, d] (VLMs)
+    final_norm.scale [d] (+ .bias for LayerNorm)
     stages[i]: tuple over the stage pattern of per-layer dicts, every leaf
         stacked over the stage's repeat axis:
-        norm1/norm2.{scale, bias}, ffn.{w_up, b_up, w_down, b_down},
-        mixer.{wq, bq, wk, bk, wv, bv, wo, bo}, mixer.vq.codebook [hq, Q, d_vq]
-    lm_head [d, vocab] (untied configurations only)
+        norm1/norm2.{scale[, bias]},
+        ffn.{w_gate, w_up, w_down} (swiglu, geglu) or
+            ffn.{w_up, b_up, w_down, b_down} (gelu, relu, relu2),
+        mixer.{wq, wk, wv, wo[, bq, bk, bv, bo]}, mixer.vq.codebook [hq, Q, d_vq]
+    lm_head [d, vocab * cb] (untied configurations only)
 
 Caches mirror the stages: a list over stages of tuples over the pattern of
 ``{"mix": {"k", "v": [repeat, b, S, Hkv, dh], "len": [repeat, b] int32}}``.
@@ -43,26 +50,52 @@ from repro_torch.configs.base import ArchConfig, LayerCfg
 from repro_torch.models.attention import (
     attn_apply, attn_cache_init, attn_decode, attn_prefill,
 )
-from repro_torch.models.embedding import embed_tokens
+from repro_torch.models.embedding import embed_tokens, merge_vision
 from repro_torch.models.ffn import ffn_apply
-from repro_torch.models.norms import apply_norm
+from repro_torch.models.norms import apply_norm, norm_init
+
+# mixers and FFNs of later slices -> the ROADMAP Queue A item that ports them
+_LATER = {"mla": "9c (MLA and MoE)", "moe": "9c (MLA and MoE)",
+          "hymba": "9b (recurrent families)", "rwkv6": "9b (recurrent families)",
+          "rwkv_cm": "9b (recurrent families)"}
+
+
+def _check_mixer(layer: LayerCfg) -> None:
+    for kind in (layer.mixer, layer.ffn):
+        if kind in _LATER:
+            raise NotImplementedError(
+                f"{kind} layers are not ported yet: they come with ROADMAP Queue A "
+                f"item {_LATER[kind]}")
+    if layer.mixer != "gqa":
+        raise ValueError(f"unknown mixer {layer.mixer!r}")
 
 
 def _normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+    """Standard normals times ``scale``, drawn on the generator's device."""
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device).mul_(scale)
+
+
+def _ffn_init(gen: torch.Generator, kind: str, d: int, d_ff: int, r: tuple) -> dict:
+    if kind in ("swiglu", "geglu"):
+        return {"w_gate": _normal(gen, r + (d, d_ff), d ** -0.5),
+                "w_up": _normal(gen, r + (d, d_ff), d ** -0.5),
+                "w_down": _normal(gen, r + (d_ff, d), d_ff ** -0.5)}
+    if kind in ("gelu", "relu", "relu2"):
+        return {"w_up": _normal(gen, r + (d, d_ff), d ** -0.5),
+                "b_up": torch.zeros(r + (d_ff,)),
+                "w_down": _normal(gen, r + (d_ff, d), d_ff ** -0.5),
+                "b_down": torch.zeros(r + (d,))}
+    raise ValueError(kind)
 
 
 def _layer_init(gen: torch.Generator, cfg: ArchConfig, layer: LayerCfg,
                 repeat: int) -> dict:
-    if layer.mixer != "gqa" or layer.ffn != "gelu":
-        raise ValueError(
-            f"init_params supports OPT-style blocks; got mixer={layer.mixer} "
-            f"ffn={layer.ffn}")
+    _check_mixer(layer)
     d, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     dh = cfg.resolved_head_dim
     r = (repeat,)
     zeros = lambda *s: torch.zeros(r + s, dtype=torch.float32)
-    ones = lambda *s: torch.ones(r + s, dtype=torch.float32)
     mixer = {
         "wq": _normal(gen, r + (d, H * dh), d ** -0.5),
         "wk": _normal(gen, r + (d, Hkv * dh), d ** -0.5),
@@ -78,18 +111,11 @@ def _layer_init(gen: torch.Generator, cfg: ArchConfig, layer: LayerCfg,
             raise ValueError(f"d_model={H * dh} not divisible by vq heads={hq}")
         mixer["vq"] = {"codebook": _normal(
             gen, r + (hq, cfg.vqt.codebook_size, H * dh // hq), 0.5)}
-    if cfg.norm != "layernorm":
-        raise ValueError(f"init_params supports layernorm; got {cfg.norm}")
     return {
-        "norm1": {"scale": ones(d), "bias": zeros(d)},
-        "norm2": {"scale": ones(d), "bias": zeros(d)},
+        "norm1": norm_init(cfg.norm, d, r),
+        "norm2": norm_init(cfg.norm, d, r),
         "mixer": mixer,
-        "ffn": {
-            "w_up": _normal(gen, r + (d, cfg.d_ff), d ** -0.5),
-            "b_up": zeros(cfg.d_ff),
-            "w_down": _normal(gen, r + (cfg.d_ff, d), cfg.d_ff ** -0.5),
-            "b_down": zeros(d),
-        },
+        "ffn": _ffn_init(gen, layer.ffn, d, cfg.d_ff, r),
     }
 
 
@@ -104,27 +130,31 @@ def _to(tree, device: torch.device):
 def init_params(cfg: ArchConfig, *, generator: torch.Generator,
                 device="cuda") -> dict:
     """Random float32 parameters for ``cfg`` in the reference layout (see the
-    module docstring), drawn on the CPU from ``generator`` and moved to
-    ``device``."""
+    module docstring), drawn from ``generator`` on its own device (a CPU
+    generator gives every process the same bits; a CUDA one draws a
+    billions-of-parameters model in a fraction of the host's time) and
+    moved to ``device``."""
     dev = resolve_device(device)
     d = cfg.d_model
+    cb = cfg.n_codebooks
+    tok_shape = (cb, cfg.vocab, d) if cb > 1 else (cfg.vocab, d)
+    embed = {"tok": _normal(generator, tok_shape, 0.02)}
     if cfg.pos == "sampled":
-        n_pos = cfg.pos_pool if cfg.pos_pool else cfg.max_seq * 100
+        embed["pos"] = _normal(generator, (cfg.pos_pool or cfg.max_seq * 100, d), 0.02)
     elif cfg.pos == "learned":
-        n_pos = cfg.max_seq
-    else:
-        raise ValueError(f"init_params supports absolute positions; got {cfg.pos}")
-    params: dict = {"embed": {
-        "tok": _normal(generator, (cfg.vocab, d), 0.02),
-        "pos": _normal(generator, (n_pos, d), 0.02),
-    }}
+        embed["pos"] = _normal(generator, (cfg.max_seq, d), 0.02)
+    elif cfg.pos not in ("rope", "none"):
+        raise ValueError(f"unknown pos={cfg.pos!r}")
+    if cfg.input_mode == "vlm":
+        embed["vis_proj"] = _normal(generator, (d, d), d ** -0.5)
+    params: dict = {"embed": embed}
     params["stages"] = [
         tuple(_layer_init(generator, cfg, layer, repeat) for layer in pattern)
         for pattern, repeat in cfg.stages
     ]
-    params["final_norm"] = {"scale": torch.ones(d), "bias": torch.zeros(d)}
+    params["final_norm"] = norm_init(cfg.norm, d)
     if not cfg.tie_embeddings:
-        params["lm_head"] = _normal(generator, (d, cfg.vocab), d ** -0.5)
+        params["lm_head"] = _normal(generator, (d, cfg.vocab * max(cb, 1)), d ** -0.5)
     return _to(params, dev)
 
 
@@ -165,12 +195,6 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
-def _check_mixer(layer: LayerCfg) -> None:
-    if layer.mixer != "gqa":
-        raise NotImplementedError(
-            f"the port runs gqa layers only so far; got mixer={layer.mixer}")
-
-
 # ---------------------------------------------------------------- forward
 
 
@@ -186,25 +210,44 @@ def _layer_fwd(lp: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
 
 
 def _head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Logits [b, n, vocab] ([b, n, cb, vocab] with codebooks)."""
     x = apply_norm(cfg.norm, params["final_norm"], x)
     if cfg.tie_embeddings:
-        return x @ params["embed"]["tok"].T
-    return x @ params["lm_head"]
+        emb = params["embed"]["tok"]
+        if cfg.n_codebooks > 1:
+            return torch.einsum("bnd,cvd->bncv", x, emb)
+        return x @ emb.T
+    logits = x @ params["lm_head"]
+    if cfg.n_codebooks > 1:
+        b, n, _ = logits.shape
+        return logits.reshape(b, n, cfg.n_codebooks, cfg.vocab)
+    return logits
 
 
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, *, patch_embeds=None,
             train: bool = False, rng=None) -> tuple[torch.Tensor, dict]:
-    """tokens: [b, n]; positions: [b, n] absolute ids (default 0..n-1).
-    Returns (logits [b, n, vocab], {"aux_loss", "hidden"})."""
+    """tokens: [b, n] (audio: [b, n, n_codebooks]); positions: [b, n]
+    absolute ids (default 0..n-1). For VLM inputs ``patch_embeds``
+    [b, n_patches, d] are projected and prefixed, at positions
+    0..n_patches-1 (the text's shifted after them); logits cover the whole
+    sequence. Returns (logits [b, n, vocab] or [b, n, cb, vocab],
+    {"aux_loss", "hidden"})."""
     if train:
-        raise NotImplementedError("training comes with the port's training slice")
-    if patch_embeds is not None:
-        raise NotImplementedError("vision inputs come with the model-family slice")
-    b, n = tokens.shape
+        raise NotImplementedError(
+            "training comes with the port's training slice (ROADMAP Queue A item 10)")
+    b, n = tokens.shape[:2]
     if positions is None:
         positions = torch.arange(n, dtype=torch.int32, device=tokens.device).expand(b, n)
     x = embed_tokens(params["embed"], cfg, tokens, positions)
+    if cfg.input_mode == "vlm":
+        if patch_embeds is None:
+            raise ValueError("vlm input requires patch_embeds")
+        x = merge_vision(params["embed"], patch_embeds, x)
+        npat = patch_embeds.shape[1]
+        positions = torch.cat(
+            [torch.arange(npat, dtype=positions.dtype, device=x.device).expand(b, npat),
+             positions + npat], dim=1)
     aux = torch.zeros((), device=x.device)
     for (pattern, repeat), sp in zip(cfg.stages, params["stages"]):
         for r in range(repeat):
@@ -220,8 +263,9 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 
 def init_caches(cfg: ArchConfig, batch: int, seq_len: int, dtype=torch.float32,
                 device="cuda") -> list:
-    """Per-stage stacked zero caches mirroring the parameter structure (f32
-    by default: the reference's bf16 default is not served by the port)."""
+    """Per-stage stacked zero caches mirroring the parameter structure: a
+    ring of ``min(window, seq_len)`` slots for windowed layers (f32 by
+    default: the reference's bf16 default is not served by the port)."""
     dev = resolve_device(device)
     caches = []
     for pattern, repeat in cfg.stages:
@@ -235,10 +279,11 @@ def init_caches(cfg: ArchConfig, batch: int, seq_len: int, dtype=torch.float32,
 
 
 def chunkable(cfg: ArchConfig) -> bool:
-    """Whether ``prefill_step`` supports this config: non-windowed GQA
-    stacks (the port's configs are plain-token, single-codebook)."""
-    return all(layer.mixer == "gqa" and layer.window is None
-               for layer in cfg.layer_list())
+    """Whether ``prefill_step`` supports this config: plain-token GQA stacks
+    with no sliding windows (a ring cache takes one token a step)."""
+    return (cfg.input_mode == "tokens" and cfg.n_codebooks == 1
+            and all(layer.mixer == "gqa" and layer.window is None
+                    and layer.ffn != "rwkv_cm" for layer in cfg.layer_list()))
 
 
 def _run_cached(params: dict, cfg: ArchConfig, tokens, caches: list, positions,
@@ -280,8 +325,8 @@ def prefill_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 
 def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                 caches: list, positions: torch.Tensor) -> tuple[torch.Tensor, list]:
-    """One new token per sequence. tokens: [b, 1]. Returns (logits
-    [b, 1, vocab], new caches)."""
+    """One new token per sequence. tokens: [b, 1] (audio [b, 1, cb]).
+    Returns (logits [b, 1, ...], new caches)."""
     return _run_cached(params, cfg, tokens, caches, positions, attn_decode)
 
 

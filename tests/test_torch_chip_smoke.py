@@ -145,3 +145,77 @@ def test_mesh_phase_gates_pass_on_the_cpu(monkeypatch):
     assert out["state_moves"] == 0 and list(out["weight_replica_bytes"]) == ["cpu"]
     assert set(out["near_tie_flips"]) == set(docs) and len(out["suggestion"]) == 4
     assert all(d <= 3e-4 for d in out["max_logits_diff"].values())
+
+
+def test_gated_attention_bounds_at_the_families_shapes():
+    """phi4-mini's forward (BH=24, n=4096, dh=128): 103.1 GFLOP, 0.6249 ms
+    as three TF32 products on the tensor cores; gemma3's global layer
+    (BH=16, n=3072, dh=256): 77.3 GFLOP, 0.4687 ms. Both 201.3 MB."""
+    for (BH, n, dh), flops, tc_ms in (((24, 4096, 128), 103_104_380_928, 0.624875),
+                                      ((16, 3072, 256), 77_334_577_152, 0.468694)):
+        nbytes, got = cs.attention_work(BH, n, n, dh)
+        assert nbytes == 201_326_592 and got == flops
+        ms, by = cs.bound(nbytes, cs.GA_PRODUCTS * got, cs.GA_PEAK)
+        assert by == "operations" and abs(ms - tc_ms) < 1e-6
+
+
+def test_code_flips_exempt_only_near_ties():
+    """A code that differs between two routes at the first such layer must
+    be a near tie there; later layers inherit the flip."""
+    idx = torch.zeros((1, 4, 2), dtype=torch.int32)
+    wide, near = torch.ones((1, 4, 2)), torch.full((1, 4, 2), 1e-5)
+    fwd = [(idx, wide), (idx, wide)]
+    flipped = idx.clone()
+    flipped[0, 2, 1] = 3
+    # the route's calls come a chunk at a time: rows 0-1, then rows 2-3
+    route = lambda first, gap: [(idx[:, :2], wide[:, :2]), (idx[:, :2], wide[:, :2]),
+                                (first[:, 2:], gap[:, 2:]), (flipped[:, 2:], wide[:, 2:])]
+    rows = cs.code_flips(fwd, route(flipped, near), 2, "t")
+    assert rows.tolist() == [[False, False, True, False]]
+    with pytest.raises(AssertionError, match="layer 0 away from near-ties"):
+        cs.code_flips(fwd, route(flipped, wide), 2, "t")
+    with pytest.raises(AssertionError, match="layer 1 away from near-ties"):
+        cs.code_flips(fwd, route(idx, wide), 2, "t")  # the first flip is at layer 1
+    assert cs.code_flips([], [], 2, "t") is None
+
+
+def test_families_phase_gates_pass_on_the_cpu(monkeypatch):
+    """Phase 16's gates at smoke size on the CPU: phi4-mini's (the kernel
+    route, chunked prefill and decode against the forward, the softmax
+    model streaming) and gemma3's (a windowed layer streams, the ring
+    wraps) with STREAM_THRESHOLD lowered to 64, and the four smoke
+    families. The wrappers' CPU calls are counted as launches, and the
+    timers (which need the card) are stubbed."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import vq as vq_mod
+    from repro_torch.kernels import gated_attention as gak
+    from repro_torch.kernels import vq_assign as vqk
+    from repro_torch.models import attention
+
+    def counted(mod, name, fn):
+        def call(*a):
+            mod.LAUNCHES[name] += 1
+            return fn(*a)
+        return call
+
+    monkeypatch.setattr(attention, "gated_attention",
+                        counted(gak, "gated_attention", attention.gated_attention))
+    monkeypatch.setattr(vq_mod, "vq_assign", counted(vqk, "vq_assign", vq_mod.vq_assign))
+    monkeypatch.setattr(attention, "STREAM_THRESHOLD", 64)
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "time_ms", lambda fn, warmup=3, iters=25: (fn(), 1.0)[1])
+    monkeypatch.setattr(cs, "profiled", lambda fn, names, top: (fn(), dict(
+        device_busy_ms=1.0, wall_ms_profiled=1.0, device_idle_share=0.0, kernels={},
+        top_kernels=[]))[1])
+    phi = cs.phi4_phase(cfg=get_config("phi4-mini-3.8b", smoke=True, vqt=True), n=96,
+                        chunk=32, n_dec=4)
+    assert phi["launches"] == {"gated_attention": 2, "vq_assign": 2}
+    assert phi["softmax"]["attention_routes"]["streaming"] == 2
+    assert phi["decode"]["max_logits_diff"] < 2e-3
+    gem = cs.gemma3_phase(cfg=get_config("gemma3-12b", smoke=True, vqt=True), n_fwd=96, n_dec=80)
+    assert gem["attention_routes"] == {"gated_attention": {"4x96x64": 1}, "streaming": 1}
+    assert gem["cache_slots"] == [64, 80]
+    smoke = cs.smoke_families()
+    assert smoke["h2o-danube-1.8b+vqt"]["launches"] == {"gated_attention": 0, "vq_assign": 2}
+    assert smoke["internvl2-1b"]["vision_logits"] == [2, 40, 512]
+    assert len(smoke) == 8

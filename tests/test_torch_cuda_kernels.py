@@ -223,7 +223,7 @@ def _vq_check(x, cb, idx, xq, near):
     assert torch.equal(xq.reshape(N, hq, -1), cb[heads, idx.long()])
 
 
-@pytest.mark.parametrize("dv", [24, 30, 128, 384])  # 30: the scalar path
+@pytest.mark.parametrize("dv", [24, 30, 128, 384, 1536, 2048])  # 30: the scalar path
 @pytest.mark.parametrize("Q", [48, 64, 256])
 @pytest.mark.parametrize("N", [1, 37, 1024])
 def test_vq_assign_kernel_matches_plain(dev, monkeypatch, dv, Q, N, hq=2):
@@ -262,11 +262,11 @@ def test_vq_assign_kernel_matches_plain(dev, monkeypatch, dv, Q, N, hq=2):
         assert torch.equal(xq_b, xq_s[None].repeat(3, 1, 1))
 
 
-def _qkv(dev, BH, nq, nk, amp=1.0, seed=None):
+def _qkv(dev, BH, nq, nk, amp=1.0, seed=None, dh=64):
     gen = torch.Generator(device=dev).manual_seed(nq + nk if seed is None else seed)
-    q = torch.randn((BH, nq, 64), generator=gen, device=dev) * 0.5 * amp
-    k = torch.randn((BH, nk, 64), generator=gen, device=dev) * 0.5 * amp
-    v = torch.randn((BH, nk, 64), generator=gen, device=dev)
+    q = torch.randn((BH, nq, dh), generator=gen, device=dev) * 0.5 * amp
+    k = torch.randn((BH, nk, dh), generator=gen, device=dev) * 0.5 * amp
+    v = torch.randn((BH, nk, dh), generator=gen, device=dev)
     return q, k, v
 
 
@@ -299,7 +299,7 @@ def test_gated_attention_writes_no_row_past_nq(dev):
     q, k, v = _qkv(dev, BH, nq, nk)
     buf = torch.full(((BH * nq + 64) * 64,), 7.0, device=dev)
     fn = bind("gated_attention", "gated_attention_launch", ga.ops.ARGTYPES)
-    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), BH, nq, nk,
+    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), BH, nq, nk, 64,
               0.125, stream_of(dev)) == 0
     torch.cuda.synchronize()
     out = buf[:BH * nq * 64].view(BH, nq, 64)
@@ -314,6 +314,71 @@ def test_gated_attention_two_calls_are_bitwise_equal(dev):
     b = ga.gated_attention_bh(q, k, v)
     torch.cuda.synchronize()
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("BH,nq,nk,dh,amp", [
+    (24, 4096, 4096, 128, 1),  # phi4-mini's forward (24 heads, one document)
+    (16, 3072, 3072, 256, 1),  # gemma3's global layer
+    (24, 1000, 1000, 128, 1), (16, 1000, 1000, 256, 1),  # ragged tiles
+    (5, 100, 70, 128, 1), (5, 70, 100, 256, 1), (3, 1, 1, 128, 1), (3, 1, 1, 256, 1),
+    (4, 65, 65, 256, 1), (4, 33, 33, 128, 1),  # one row / key past a tile
+    (8, 300, 300, 128, 3), (8, 300, 300, 256, 3),  # |s| up to ~14
+])
+def test_gated_attention_wide_heads_match_plain(dev, BH, nq, nk, dh, amp):
+    q, k, v = _qkv(dev, BH, nq, nk, amp, dh=dh)
+    before = ga.LAUNCHES["gated_attention"]
+    out = ga.gated_attention_bh(q, k, v)
+    torch.cuda.synchronize()
+    assert ga.LAUNCHES["gated_attention"] == before + 1
+    torch.testing.assert_close(out, ga.gated_attention_ref(q, k, v), atol=1e-5, rtol=1e-5)
+    again = ga.gated_attention_bh(q, k, v)  # a fixed order of every sum
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("dh", [128, 256])
+def test_gated_attention_wide_heads_write_no_row_past_nq(dev, dh):
+    from repro_torch.kernels._launch import bind, stream_of
+
+    BH, nq, nk = 3, 100, 100
+    q, k, v = _qkv(dev, BH, nq, nk, dh=dh)
+    buf = torch.full(((BH * nq + 64) * dh,), 7.0, device=dev)
+    fn = bind("gated_attention", "gated_attention_launch", ga.ops.ARGTYPES)
+    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), BH, nq, nk, dh,
+              dh ** -0.5, stream_of(dev)) == 0
+    torch.cuda.synchronize()
+    out = buf[:BH * nq * dh].view(BH, nq, dh)
+    torch.testing.assert_close(out, ga.gated_attention_ref(q, k, v), atol=1e-5, rtol=1e-5)
+    assert (buf[BH * nq * dh:] == 7.0).all()
+
+
+def test_gated_attention_other_head_dims_raise(dev):
+    """dh = 80 (h2o-danube's heads) has no instantiation: the wrapper raises
+    on the card and names the dims it takes; the launcher refuses it too."""
+    from repro_torch.kernels._launch import bind, stream_of
+
+    q, k, v = _qkv(dev, 2, 16, 16, dh=80)
+    with pytest.raises(ValueError, match=r"dh=dv in \(64, 128, 256\)"):
+        ga.gated_attention_bh(q, k, v)
+    fn = bind("gated_attention", "gated_attention_launch", ga.ops.ARGTYPES)
+    out = torch.empty_like(q)
+    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 2, 16, 16, 80,
+              80 ** -0.5, stream_of(dev)) != 0
+    x = torch.zeros((2, 16, 128), device=dev)
+    with pytest.raises(ValueError, match="dh=128 dv=64"):
+        ga.gated_attention_bh(x, x, x[..., :64].contiguous())
+
+
+def test_gated_attention_model_layout_gqa_wide(dev):
+    """phi4-mini's layout at dh = 128: 24 query heads over 8 kv heads."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn((1, 300, 24, 128), generator=gen, device=dev) * 0.5
+    k = torch.randn((1, 300, 8, 128), generator=gen, device=dev) * 0.5
+    v = torch.randn((1, 300, 8, 128), generator=gen, device=dev)
+    out = ga.gated_attention(q, k, v)
+    fold = lambda a: a.repeat_interleave(24 // a.shape[2], 2).transpose(1, 2).reshape(24, 300, 128)
+    want = ga.gated_attention_ref(fold(q), fold(k), fold(v))
+    want = want.reshape(1, 24, 300, 128).transpose(1, 2).reshape(1, 300, 24 * 128)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
 
 
 def test_gated_attention_model_layout_gqa(dev):
@@ -377,7 +442,7 @@ def test_incr_patch_kernel_matches_plain(dev, monkeypatch, B, R, C, case, H=12):
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros((4, 2, 32), device=dev)
-    with pytest.raises(ValueError, match="dh=dv=64"):
+    with pytest.raises(ValueError, match="dh=dv in"):
         ga.gated_attention_bh(x, x, x)
     q_off = torch.zeros((4 * 2 * 64 + 1,), device=dev)[1:].view(4, 2, 64)
     with pytest.raises(ValueError, match="16-byte aligned"):

@@ -92,12 +92,38 @@ def test_full_attention_routes_like_the_reference():
 
 
 def test_long_dense_sequences_name_the_later_slice(monkeypatch):
+    """Past STREAM_THRESHOLD the dense cases (softmax, σ with a window) take
+    ``flash.streaming_attention`` and equal the dense core within 2e-5
+    (``tests/test_models.py:130-133``); the σ kernel route has no length
+    limit."""
     monkeypatch.setattr(port_attn, "STREAM_THRESHOLD", 16)
-    q, k, v = (torch.tensor(a) for a in _qkv(0, 1, 20, 2, 2, 8))
-    with pytest.raises(NotImplementedError, match="flash"):
-        port_attn.full_attention(q, k, v, softmax=True)
-    # the σ kernel route has no length limit
+    q, k, v = (torch.tensor(a) for a in _qkv(0, 1, 20, 4, 2, 8))
+    calls = []
+    stream = port_attn.streaming_attention
+    monkeypatch.setattr(port_attn, "streaming_attention",
+                        lambda *a, **kw: calls.append(kw) or stream(*a, **kw))
+    for kw in (dict(softmax=True), dict(softmax=False, window=6), dict(softmax=True, window=6)):
+        got = port_attn.full_attention(q, k, v, **kw)
+        mask = port_attn.make_mask(20, 20, causal=True, window=kw.get("window"))
+        want = port_attn.attention_core(q, k, v, mask, softmax=kw["softmax"])
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
+    assert len(calls) == 3
     port_attn.full_attention(q, k, v, softmax=False)
+    assert len(calls) == 3  # the kernel route
+
+
+@pytest.mark.parametrize("b,n,H,Hkv,dh", [(1, 64, 2, 2, 128),   # phi4-mini's head dim
+                                           (1, 40, 2, 2, 256),   # gemma3's, ragged n
+                                           (1, 48, 6, 2, 128)])  # GQA rep 3, as phi4's 24/8
+def test_wide_heads_match_jax_kernel(b, n, H, Hkv, dh):
+    """The plain version at the head dims the kernel gained (128, 256)
+    against the reference's Pallas kernel in interpret mode."""
+    q, k, v = _qkv(dh + n, b, n, H, Hkv, dh)
+    want = jax_gated_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               block_q=32, block_k=32)
+    got = gated_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v))
+    assert got.shape == (b, n, H * dh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
 
 def test_make_mask_matches_reference():

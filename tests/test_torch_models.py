@@ -18,6 +18,7 @@ from repro.models import transformer as RT  # noqa: E402
 from repro.models.embedding import embed_tokens as ref_embed  # noqa: E402
 from repro.models.ffn import ffn_apply as ref_ffn  # noqa: E402
 from repro.models.norms import layernorm as ref_layernorm  # noqa: E402
+from repro.models.norms import rmsnorm as ref_rmsnorm  # noqa: E402
 from repro.serving.decode import greedy_decode as ref_greedy_decode  # noqa: E402
 from repro.serving.jit_engine import JitIncrementalEngine as RefEngine  # noqa: E402
 from repro_torch.configs.base import LayerCfg, uniform_stages  # noqa: E402
@@ -72,8 +73,10 @@ def test_layers_match_reference(setup):
            ref_layernorm(lp_j["norm1"], jnp.asarray(x)), atol=2e-6)
     _close(apply_norm("layernorm", lp_t["norm2"], torch.tensor(x)).numpy(),
            ref_layernorm(lp_j["norm2"], jnp.asarray(x)), atol=2e-6)
+    _close(apply_norm("rmsnorm", lp_t["norm1"], torch.tensor(x)).numpy(),
+           ref_rmsnorm(lp_j["norm1"], jnp.asarray(x)), atol=2e-6)
     with pytest.raises(ValueError):
-        apply_norm("rmsnorm", lp_t["norm1"], torch.tensor(x))
+        apply_norm("groupnorm", lp_t["norm1"], torch.tensor(x))
     _close(ffn_apply("gelu", lp_t["ffn"], torch.tensor(x)).numpy(),
            ref_ffn("gelu", lp_j["ffn"], jnp.asarray(x)), atol=2e-5)
     toks, pos = _doc(cfg, 1, n=9)
@@ -110,17 +113,33 @@ def test_forward_last_row_matches_engine_full_forward(setup):
 
 
 def test_unported_modes_raise(setup):
+    """Training and the MLA / recurrent mixers still raise, naming the
+    ROADMAP item that ports them; vision inputs and windowed (ring) caches
+    now work."""
     _, _, _, tp = setup
     toks = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 10"):
         PT.forward(tp, port_smoke(), toks, train=True)
-    with pytest.raises(NotImplementedError):
-        PT.forward(tp, port_smoke(), toks, patch_embeds=torch.zeros(1, 2, 256))
+    for mixer, item in (("mla", "9c"), ("hymba", "9b"), ("rwkv6", "9b")):
+        other = dataclasses.replace(port_smoke(), stages=uniform_stages(LayerCfg(mixer, "gelu"), 2))
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            PT.init_caches(other, 1, 4, device="cpu")
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            PT.init_params(other, generator=torch.Generator().manual_seed(0), device="cpu")
+    vlm = dataclasses.replace(port_smoke(), input_mode="vlm")
+    vp = dict(tp, embed=dict(tp["embed"], vis_proj=torch.eye(vlm.d_model)))
+    patches = torch.randn((1, 2, vlm.d_model), generator=torch.Generator().manual_seed(0))
+    logits, _ = PT.forward(vp, vlm, toks, torch.arange(4)[None] * 3, patch_embeds=patches)
+    assert logits.shape == (1, 6, vlm.vocab) and bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError, match="patch_embeds"):
+        PT.forward(vp, vlm, toks, torch.arange(4)[None])
     windowed = dataclasses.replace(
         port_smoke(), stages=uniform_stages(LayerCfg("gqa", "gelu", window=8), 2))
     assert not PT.chunkable(windowed) and PT.chunkable(port_smoke())
-    with pytest.raises(NotImplementedError, match="windowed"):
-        PT.init_caches(windowed, 1, 4, device="cpu")
+    caches = PT.init_caches(windowed, 1, 20, device="cpu")
+    assert caches[0][0]["mix"]["k"].shape == (2, 1, 8, 4, 64)  # a ring of 8 slots
+    with pytest.raises(ValueError, match="non-windowed"):
+        PT.prefill_step(tp, windowed, toks, caches, torch.arange(4)[None])
 
 
 def test_prefill_then_decode_matches_reference(setup):
