@@ -22,12 +22,14 @@ and exits non-zero):
                 served row counts; keep bits equal) beside the launch floor
                 (a one-element ``zero_()``), ``vq_assign`` (hq=2,
                 Q=64, dv=384; B=4 x N=1024, N=1024, N=32 and N=1, and
-                phi4-mini's N=4096 at dv=1536: idx equal away from
+                the families' (N, dv) of ``FAMILY_VQ``, hymba's dv=800
+                among them: idx equal away from
                 near-ties, x_q bitwise the codebook row; the VQ kernel's own
                 device time by name beside the wrapper's),
                 ``gated_attention`` (BH=48, dh=64, n in {1024, 1000, 37};
-                dh=128 at phi4-mini's BH=24, n=4096 and dh=256 at gemma3's
-                BH=16, n=3072, each also at n=1000; within 1e-5; its
+                dh=128 at phi4-mini's BH=24, n=4096, dh=256 at gemma3's
+                BH=16, n=3072 and dh=64 at hymba's BH=25, n=4096, each
+                also at n=1000; within 1e-5; its
                 bound at its route's peak, 3xTF32 on the tensor cores,
                 beside the FP32 cores') and ``incr_patch`` (B=4, n=1024, H=12, C in
                 {8, 72, 264}, and 1x1024x1032, the most served step; within
@@ -165,6 +167,26 @@ and exits non-zero):
                 embeddings) and musicgen (4 codebooks) at smoke size, both
                 variants: launches by route, decode against forward.
                 Each model's weights are freed before the next.
+17. recurrent — the recurrent families (``rwkv6_phase``, ``hymba_phase``,
+                ``hymba_ring_phase``), weights drawn on the card from seed
+                0. rwkv6-7b at full width and depth (7.5 B parameters): a
+                [1, 4096] forward (no kernel of the port's; finite
+                logits), timed and profiled; layer 0's time-mix operands
+                through the chunked and the sequential scan within 1e-4,
+                the chunked scan timed; 64 decode steps from an empty
+                state, the last within 2e-3 of a [1, 64] forward (each
+                step's difference printed), one more step profiled.
+                hymba-1.5b with VQT at full width and depth: a [1, 4096]
+                forward (3 ``gated_attention`` launches at
+                BH=25, n=4096, dh=64, 29 streamed windowed layers, 32
+                ``vq_assign`` at dv=800; finite logits), timed and
+                profiled; layer 0's SSM scan as rwkv6's; 64 decode steps
+                within 2e-3 of a [1, 64] forward (near-tie code flips
+                exempt and counted); the softmax model on the same
+                weights streams every layer. hymba at full width, depth
+                cut to one global and one local layer: 1,100 decode steps
+                past the 1,024-slot ring, the last within 2e-3 of a
+                [1, 1100] forward.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line
 (``delta_gate`` at the threshold phase's most served r), and the last line
@@ -173,8 +195,10 @@ kernels line come from the path that runs each kernel (serve for
 ``fused_step``, threshold for ``delta_gate``, forward for
 ``gated_attention``, the suggest flushes for ``vq_assign``, patch for
 ``incr_patch``; ``fused_step``'s ``mesh_launches`` from the mesh phase;
-``gated_attention``'s ``head_dims`` and ``vq_assign``'s ``dv1536`` from the
-families phase's forwards),
+``gated_attention``'s ``head_dims`` and ``vq_assign``'s ``dv1536`` and
+``dv2048`` from the families phase's forwards, ``gated_attention``'s
+``hymba`` and ``vq_assign``'s ``dv800`` from the recurrent phase's hymba
+forward),
 with the counters set to 0 just before that path; launches made to compare
 or time a kernel do not count. Exits non-zero without a GPU
 and outside a checkout of the repo.
@@ -182,17 +206,17 @@ and outside a checkout of the repo.
 ``--sweep`` runs phases 1 and 2, then times the launch floor and
 ``delta_gate`` at r in {64, ..., 4096} (d=768) under the wrapper's launch
 shape and with each of ``ops.GATE_SHAPES`` (rows a CTA, burst or
-stream) forced, ``vq_assign`` at 1 to 4,096
-tokens under the wrapper's schedule rule and with each schedule forced (the
-numbers behind the rule), and ``fused_step`` and ``incr_patch``, each
-against its plain version, at every (B, n, C) the serve phase's edit steps
+stream) forced, ``vq_assign`` at 1 to 4,096 tokens (dv=384) and at the
+families' (N, dv) under the wrapper's schedule rule and with each schedule
+forced (the numbers behind the rule), and ``fused_step`` and
+``incr_patch``, each against its plain version, at every (B, n, C) the serve phase's edit steps
 run at (B in {1, 2, 4}, n=1024, C in {8, 72, 136, 264}; 1x1024x520 and
 1x1024x1032) and at 1x4096x72, ``incr_patch`` also with each of its two
 layouts forced, and ``gated_attention`` against its plain version at
 BH=48 x n in {37, 128, 256, 512, 1000, 1024, 2048}, BH=12 x n=1024,
 BH=48 at (nq, nk) = (1024, 512) and (512, 1024) (dh=64), and dh=128 at
-BH=24 x n in {4096, 1000} and dh=256 at BH=16 x n in {3072, 1000}, with
-both bounds; one
+BH=24 x n in {4096, 1000}, dh=256 at BH=16 x n in {3072, 1000} and dh=64
+at hymba's BH=25 x n in {4096, 1000}, with both bounds; one
 line a shape, and prints no ok line. ``--sweep delta_gate,patch`` runs only
 the named sweeps (of ``delta_gate``, ``vq_assign``, ``patch``,
 ``gated_attention``).
@@ -481,10 +505,11 @@ def sweep_delta_gate(ops, ref, gen) -> None:
         emit("sweep", **row, shapes_ms=shapes)
 
 
-# the (tokens, dv) of phase 16's vq_assign calls, each schedule at each dv:
-# phi4-mini's forward, prefill chunks and decode steps (dv 1536), gemma3's
-# forward and decode steps (dv 2048)
-FAMILY_VQ = ((4096, 1536), (1024, 1536), (1, 1536), (3072, 2048), (1, 2048))
+# the (tokens, dv) of phases 16 and 17's vq_assign calls: phi4-mini's
+# forward, prefill chunks and decode steps (dv 1536), gemma3's forward and
+# decode steps (dv 2048), hymba's forward and decode steps (dv 800)
+FAMILY_VQ = ((4096, 1536), (1024, 1536), (1, 1536), (3072, 2048), (1, 2048),
+             (4096, 800), (1, 800))
 
 
 def check_vq_assign(mod, gen, B: int, N: int, hq=2, Q=64, dv=384):
@@ -534,15 +559,16 @@ SWEEP_SCHEDULES = ("small", "large16", "large32")  # vq_assign/ops.py SCHEDULES
 
 
 def sweep_vq_assign(mod, gen) -> None:
-    """``--sweep``: ``vq_assign`` (hq=2, Q=64, dv=384) at each of
-    SWEEP_TOKENS tokens under the wrapper's schedule rule and with each
-    schedule forced, every call first held against the plain version as in
-    the kernels phase; one JSON line a token count."""
-    for n in SWEEP_TOKENS:
-        row = dict(N=n, rule=check_vq_assign(mod, gen, 1, n))
+    """``--sweep``: ``vq_assign`` (hq=2, Q=64) at dv=384 for each of
+    SWEEP_TOKENS tokens, then at each (tokens, dv) of FAMILY_VQ, under the
+    wrapper's schedule rule and with each schedule forced, every call first
+    held against the plain version as in the kernels phase; one JSON line a
+    shape."""
+    for n, dv in tuple((n, 384) for n in SWEEP_TOKENS) + FAMILY_VQ:
+        row = dict(N=n, dv=dv, rule=check_vq_assign(mod, gen, 1, n, dv=dv))
         for name in SWEEP_SCHEDULES:
             with mock.patch.object(mod.ops, "schedule", lambda _t, _n=name: _n, create=True):
-                row[name] = check_vq_assign(mod, gen, 1, n)
+                row[name] = check_vq_assign(mod, gen, 1, n, dv=dv)
         emit("sweep", **row)
 
 
@@ -613,12 +639,14 @@ def check_gated_attention(mod, gen, nq: int, nk: int | None = None, BH=48, dh=64
 # (BH, nq, nk, dh). BH=48 is the VQ-OPT forward's [4, 1024] batch of 12
 # heads, BH=12 one document; then two ragged (nq != nk) both ways; then
 # phi4-mini's forward (24 heads of 128) and gemma3's global layer (16 of
-# 256), each also at a ragged n = 1000
+# 256), then hymba's global layers (25 heads of 64, GQA 25 : 5 repeated by
+# the wrapper), each also at a ragged n = 1000
 WIDE_ATTENTION = ((24, 4096, 4096, 128), (24, 1000, 1000, 128),
                   (16, 3072, 3072, 256), (16, 1000, 1000, 256))
+HYMBA_ATTENTION = ((25, 4096, 4096, 64), (25, 1000, 1000, 64))
 SWEEP_ATTENTION = (tuple((48, n, n, 64) for n in (37, 128, 256, 512, 1000, 1024, 2048))
                    + ((12, 1024, 1024, 64), (48, 1024, 512, 64), (48, 512, 1024, 64))
-                   + WIDE_ATTENTION)
+                   + WIDE_ATTENTION + HYMBA_ATTENTION)
 
 
 def sweep_gated_attention(mod, gen) -> None:
@@ -726,12 +754,15 @@ def profiled(fn, names, top: int) -> dict:
     """``fn()`` once under torch.profiler: its wall time (ends in a sync),
     the device's busy time and idle share, the summed device time and
     launches of the kernels whose names hold each of ``names``, and the
-    ``top`` kernels by device time."""
+    ``top`` kernels by device time. Only the device's activity is traced:
+    host-op records would lengthen the wall time the idle share is taken
+    over, and their post-processing outlasts a traced forward of tens of
+    thousands of launches many times over."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1861,6 +1892,15 @@ def step_profile(fn) -> dict:
                                  "top_kernels")}
 
 
+def softmax_twin(params: dict, cfg):
+    """The published softmax model on a VQT model's weights: (its config,
+    the parameter tree without the ``vq`` leaves; no tensor is copied)."""
+    soft = dict(params, stages=[
+        tuple(dict(lp, mixer={k: t for k, t in lp["mixer"].items() if k != "vq"}) for lp in st)
+        for st in params["stages"]])
+    return dataclasses.replace(cfg, attn_softmax=True, vqt=None), soft
+
+
 def rows_close(what: str, got: torch.Tensor, want: torch.Tensor, flipped,
                tol: float = 2e-3) -> dict:
     """``got`` within atol = rtol = ``tol`` of ``want`` (both [b, m, ...])
@@ -1977,11 +2017,7 @@ def phi4_phase(cfg=None, n: int = 4096, chunk: int = 1024, n_dec: int = 16,
                                                    pos[:, -1:] + 1))
     del caches
 
-    # the softmax model on the same weights: the VQ leaves left out, no copy
-    soft_cfg = dataclasses.replace(cfg, attn_softmax=True, vqt=None)
-    soft = dict(params, stages=[
-        tuple(dict(lp, mixer={k: t for k, t in lp["mixer"].items() if k != "vq"}) for lp in st)
-        for st in params["stages"]])
+    soft_cfg, soft = softmax_twin(params, cfg)
     reset_launches()
     with attention_census() as soft_census:
         t0 = time.perf_counter()
@@ -2175,6 +2211,328 @@ def smoke_families(device=None, families=FAMILY_SMOKE) -> dict:
     return out
 
 
+# ------------------------------------------------------- the recurrent families
+
+
+def scan_check(ops: tuple, what: str, **kw) -> dict:
+    """The chunked scan against the sequential one on the same operands
+    (q, k, v, logw, zero-padded to a multiple of the chunk as the mixers
+    pad them; ``kw``: u, mamba_style), within 1e-4
+    (``tests/test_models.py:150-151``), and the chunked scan's ms a call
+    (CUDA events; its chunk loop is host launches, so the events' span
+    holds the gaps between them)."""
+    from repro_torch.models import linear_scan
+
+    pad = -ops[0].shape[2] % linear_scan.CHUNK
+    args = tuple(torch.nn.functional.pad(a, (0, 0, 0, pad)) for a in ops)
+    chunked, sequential = linear_scan.lin_attn_chunked, linear_scan.lin_attn_sequential
+    yc, sc = chunked(*args, **kw)
+    ys, ss = sequential(*args, **kw)
+    err = max(float((yc - ys).abs().max()), float((sc - ss).abs().max()))
+    if not (torch.allclose(yc, ys, atol=1e-4, rtol=1e-4)
+            and torch.allclose(sc, ss, atol=1e-4, rtol=1e-4)):
+        raise AssertionError(f"recurrent: {what} chunked scan differs from the sequential "
+                             f"one by {err} (atol = rtol = 1e-4)")
+    del yc, sc, ys, ss
+    return dict(chunked_vs_sequential_max_abs_err=err,
+                chunks=args[0].shape[2] // linear_scan.CHUNK,
+                chunked_scan_ms=time_ms(lambda: chunked(*args, **kw), warmup=1, iters=5))
+
+
+def stopwatch():
+    """(laps, lap): ``lap(name)`` stores in ``laps`` the host seconds since
+    the previous lap (or the stopwatch's start) under ``name``."""
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name], last[0] = now - last[0], now
+
+    return laps, lap
+
+
+def rwkv6_phase(cfg=None, n: int = 4096, n_dec: int = 64, device=None) -> dict:
+    """rwkv6-7b at full width and depth (32 layers, d 4096, 64 heads of 64,
+    d_ff 14,336, vocab 65,536), weights drawn on the card from seed 0:
+    ``forward`` on [1, n] random tokens (no kernel of the port's: no
+    attention, no VQ; finite logits), timed and profiled; layer 0's
+    time-mix operands through the chunked and the sequential scan (within
+    1e-4), the chunked scan timed; then ``decode_step`` over n_dec tokens
+    from an empty state, the last step's logits within 2e-3 of a [1, n_dec]
+    forward (``tests/test_models.py:85-89``; every step's difference is
+    reported, and row 0's between a [1, 1] and the [1, n_dec] forward),
+    timed, and one more step profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv6
+    from repro_torch.models import transformer as T
+    from repro_torch.models.embedding import embed_tokens
+    from repro_torch.models.norms import apply_norm
+
+    device = torch.device(device or DEVICE)
+    on_card = device.type == "cuda"
+    cfg = cfg or get_config("rwkv6-7b")
+    L = n_layers(cfg)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 1e9 if on_card else None
+    laps, lap = stopwatch()
+    params = T.init_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    sync(device)
+    lap("init")
+    param_bytes = tensor_bytes(params)  # every leaf f32
+    tokens = torch.randint(0, cfg.vocab, (1, n), device=device,
+                           generator=torch.Generator(device=device).manual_seed(1))
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, _ = T.forward(params, cfg, tokens)
+    sync(device)
+    forward_s = time.perf_counter() - t0
+    launches = launch_counters()[1]()
+    if any(launches.values()):
+        raise AssertionError(f"recurrent: the rwkv6 forward launched {launches} (expected none)")
+    if logits.shape != (1, n, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"recurrent: rwkv6 forward logits {tuple(logits.shape)} are not "
+                             "all finite")
+    del logits
+    call = lambda: T.forward(params, cfg, tokens)  # noqa: E731
+    lap("first_forward")
+    ms = time_ms(call, warmup=0, iters=2)
+    lap("timed_forwards")
+    prof = profiled(call, (), top=6)
+    lap("profiled_forward")
+
+    # layer 0's time-mix operands: chunked against sequential
+    lp = T._index(params["stages"][0], 0)[0]
+    h = apply_norm(cfg.norm, lp["norm1"], embed_tokens(params["embed"], cfg, tokens, None))
+    r, k, v, logw, _, u = rwkv6._time_mix_ops(lp["mixer"], cfg, h, rwkv6._token_shift(h))
+    scan = scan_check((r, k, v, logw), "rwkv6 layer 0", u=u)
+    del h, r, k, v, logw
+    lap("layer0_scan")
+
+    toks = tokens[:, :n_dec]
+    want = T.forward(params, cfg, toks)[0]
+    caches = T.init_caches(cfg, 1, n_dec, device=device)
+    got = []
+    sync(device)
+    t0 = time.perf_counter()
+    for i in range(n_dec):
+        step, caches = T.decode_step(params, cfg, toks[:, i:i + 1], caches,
+                                     torch.full((1, 1), i, dtype=torch.int32, device=device))
+        got.append(step)
+    sync(device)
+    decode_s = time.perf_counter() - t0
+    got = torch.cat(got, dim=1)
+    dec = rows_close("recurrent: rwkv6 decode", got[:, -1:], want[:, -1:], None)
+    row_err = (got - want).abs().amax(-1)[0]  # [n_dec], by step
+    # the first token through a [1, 1] forward: the same arithmetic as row 0
+    # of the [1, n_dec] one but for the products' shapes (their float order)
+    first = T.forward(params, cfg, toks[:, :1])[0]
+    dec.update(max_logits_diff_by_step=[float(e) for e in row_err],
+               max_logits_abs=float(want.abs().max()),
+               row0_forward_1_vs_forward_n_dec=float((first - want[:, :1]).abs().max()))
+    step_prof = step_profile(lambda: T.decode_step(
+        params, cfg, toks[:, -1:], caches,
+        torch.full((1, 1), n_dec, dtype=torch.int32, device=device)))
+    lap("decode")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    del params, caches, got, want
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(model=cfg.name, layers=L, d_model=cfg.d_model,
+                heads=cfg.d_model // cfg.rwkv.head_dim, head_dim=cfg.rwkv.head_dim,
+                d_ff=cfg.d_ff, vocab=cfg.vocab,
+                params=param_bytes // 4, param_bytes=param_bytes, tokens=n,
+                init_params_s=laps["init"], first_forward_s=forward_s, ms_per_forward=ms,
+                tokens_per_s=n / (ms / 1e3),
+                profile=dict(device_busy_ms=prof["device_busy_ms"],
+                             wall_ms_profiled=prof["wall_ms_profiled"],
+                             device_idle_share=prof["device_idle_share"],
+                             top_kernels=prof["top_kernels"]),
+                layer0_scan=dict(scan, scan_ms_all_layers_share_of_forward=(
+                    L * scan["chunked_scan_ms"] / ms)),
+                decode=dict(steps=n_dec, seconds=decode_s, ms_per_step=decode_s / n_dec * 1e3,
+                            step_profile=step_prof, **dec),
+                mem_gb=dict(start=start_gb, peak=peak), step_seconds=laps)
+
+
+def hymba_phase(cfg=None, n: int = 4096, n_dec: int = 64, device=None) -> dict:
+    """hymba-1.5b with VQT at full width and depth (32 layers, d 1600, 25 /
+    5 heads of 64, 3 global layers), weights drawn on the card from seed 0:
+    ``forward`` on [1, n] random tokens — ``gated_attention`` at BH = 25,
+    n, dh = 64 in each global layer, the windowed σ layers streamed past
+    ``STREAM_THRESHOLD``, ``vq_assign`` at dv = 800 in every layer; finite
+    logits — timed and profiled; layer 0's SSM operands through the chunked
+    and the sequential scan (within 1e-4); then ``decode_step`` over n_dec
+    tokens from empty caches, every step's logits within 2e-3 of a
+    [1, n_dec] forward but where a row's own VQ code flipped at a near tie;
+    then the softmax model on the same weights (no VQ leaves): a forward
+    with finite logits, every layer streamed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, hymba
+    from repro_torch.models import transformer as T
+    from repro_torch.models.embedding import embed_tokens
+    from repro_torch.models.norms import apply_norm
+
+    device = torch.device(device or DEVICE)
+    on_card = device.type == "cuda"
+    cfg = cfg or get_config("hymba-1.5b", vqt=True)
+    L = n_layers(cfg)
+    n_global = sum(layer.window is None for layer in cfg.layer_list())
+    streamed = (L - n_global) if n > attention.STREAM_THRESHOLD else 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 1e9 if on_card else None
+    laps, lap = stopwatch()
+    params = T.init_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    sync(device)
+    lap("init")
+    param_bytes = tensor_bytes(params)  # every leaf f32
+    tokens = torch.randint(0, cfg.vocab, (1, n), device=device,
+                           generator=torch.Generator(device=device).manual_seed(1))
+    reset_launches()
+    with attention_census() as census:
+        t0 = time.perf_counter()
+        logits, _ = T.forward(params, cfg, tokens)
+        sync(device)
+        forward_s = time.perf_counter() - t0
+    launches = launch_counters()[1]()
+    dh = cfg.resolved_head_dim
+    want_shape = {f"{cfg.n_heads}x{n}x{dh}": n_global}
+    if (census["gated_attention"] != want_shape or launches["gated_attention"] != n_global
+            or census["streaming"] != streamed or launches["vq_assign"] != L):
+        raise AssertionError(f"recurrent: hymba forward launched {launches} with attention "
+                             f"routes {census} (expected {want_shape}, {streamed} streamed, "
+                             f"{L} vq_assign)")
+    if logits.shape != (1, n, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("recurrent: hymba forward logits are not finite")
+    del logits
+    call = lambda: T.forward(params, cfg, tokens)  # noqa: E731
+    lap("first_forward")
+    ms = time_ms(call, warmup=0, iters=2)
+    lap("timed_forwards")
+    prof = profiled(call, ("gated_attention", "vq_assign"), top=6)
+    lap("profiled_forward")
+
+    # layer 0's SSM operands: chunked against sequential (zero-padded to the chunk)
+    lp = T._index(params["stages"][0], 0)[0]
+    h = apply_norm(cfg.norm, lp["norm1"], embed_tokens(params["embed"], cfg, tokens, None))
+    xs, _ = (h @ lp["mixer"]["w_xz"]).chunk(2, dim=-1)
+    xc, _ = hymba._causal_conv(lp["mixer"], xs)
+    qs, ks, vs, logw = hymba._ssm_qkv(lp["mixer"], cfg, xc, h)
+    scan = scan_check((qs, ks, vs, logw), "hymba layer 0", mamba_style=True)
+    del h, xs, xc, qs, ks, vs, logw
+    lap("layer0_scan")
+
+    toks = tokens[:, :n_dec]
+    with recorded_codes() as fwd_codes:
+        want = T.forward(params, cfg, toks)[0]
+    caches = T.init_caches(cfg, 1, n_dec, device=device)
+    got = []
+    sync(device)
+    t0 = time.perf_counter()
+    with recorded_codes() as route_codes:
+        for i in range(n_dec):
+            step, caches = T.decode_step(params, cfg, toks[:, i:i + 1], caches,
+                                         torch.full((1, 1), i, dtype=torch.int32, device=device))
+            got.append(step)
+    sync(device)
+    decode_s = time.perf_counter() - t0
+    flipped = code_flips(fwd_codes, route_codes, L, "recurrent: hymba decode")
+    dec = rows_close("recurrent: hymba decode", torch.cat(got, dim=1), want, flipped)
+    step_prof = step_profile(lambda: T.decode_step(
+        params, cfg, toks[:, -1:], caches,
+        torch.full((1, 1), n_dec, dtype=torch.int32, device=device)))
+    del caches, got, want, fwd_codes, route_codes
+    lap("decode")
+
+    soft_cfg, soft = softmax_twin(params, cfg)
+    reset_launches()
+    with attention_census() as soft_census:
+        t0 = time.perf_counter()
+        logits, _ = T.forward(soft, soft_cfg, tokens)
+        sync(device)
+        soft_s = time.perf_counter() - t0
+    soft_launches = launch_counters()[1]()
+    soft_streamed = L if n > attention.STREAM_THRESHOLD else 0
+    if (soft_census["streaming"] != soft_streamed or soft_census["gated_attention"]
+            or any(soft_launches.values())):
+        raise AssertionError(f"recurrent: hymba softmax forward took routes {soft_census} and "
+                             f"launched {soft_launches} (expected {soft_streamed} streamed)")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("recurrent: hymba softmax logits are not finite")
+    lap("softmax_forward")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    del logits, soft, params
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(model=cfg.name, layers=L, global_layers=n_global, d_model=cfg.d_model,
+                heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=dh, d_state=cfg.ssm.d_state,
+                vocab=cfg.vocab, params=param_bytes // 4, param_bytes=param_bytes, tokens=n,
+                init_params_s=laps["init"], first_forward_s=forward_s, ms_per_forward=ms,
+                tokens_per_s=n / (ms / 1e3),
+                launches={k: launches[k] for k in ("gated_attention", "vq_assign")},
+                attention_routes=census, profile=dict(
+                    device_busy_ms=prof["device_busy_ms"],
+                    wall_ms_profiled=prof["wall_ms_profiled"],
+                    device_idle_share=prof["device_idle_share"], kernels=prof["kernels"],
+                    top_kernels=prof["top_kernels"]),
+                layer0_scan=dict(scan, scan_ms_all_layers_share_of_forward=(
+                    L * scan["chunked_scan_ms"] / ms)),
+                decode=dict(steps=n_dec, seconds_with_codes_recorded=decode_s,
+                            ms_per_step=decode_s / n_dec * 1e3, step_profile=step_prof, **dec),
+                softmax=dict(seconds=soft_s, attention_routes=soft_census),
+                mem_gb=dict(start=start_gb, peak=peak), step_seconds=laps)
+
+
+def hymba_ring_phase(cfg=None, n_dec: int = 1100, device=None) -> dict:
+    """hymba-1.5b with VQT at full width, depth cut to two layers (one
+    global, one local with its 1,024-token window): ``decode_step`` over
+    n_dec tokens, past the local layer's ring, the last step's logits
+    within 2e-3 of a [1, n_dec] forward unless its own code flipped at a
+    near tie."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    device = torch.device(device or DEVICE)
+    if cfg is None:
+        full = get_config("hymba-1.5b", vqt=True)
+        glob, local = full.stages[0][0][0], full.stages[1][0][0]
+        cfg = dataclasses.replace(full, n_layers=2,
+                                  stages=(((glob,), 1), ((local,), 1))).validate()
+    L = n_layers(cfg)
+    params = T.init_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    toks = torch.randint(0, cfg.vocab, (1, n_dec), device=device,
+                         generator=torch.Generator(device=device).manual_seed(1))
+    reset_launches()
+    with recorded_codes() as fwd_codes:
+        want = T.forward(params, cfg, toks)[0][:, -1:]
+    launches = launch_counters()[1]()
+    caches = T.init_caches(cfg, 1, n_dec, device=device)
+    ring = [c["mix"]["attn"]["k"].shape[2] for st in caches for c in st]
+    sync(device)
+    t0 = time.perf_counter()
+    with recorded_codes() as route_codes:
+        for i in range(n_dec):
+            step, caches = T.decode_step(params, cfg, toks[:, i:i + 1], caches,
+                                         torch.full((1, 1), i, dtype=torch.int32, device=device))
+    sync(device)
+    decode_s = time.perf_counter() - t0
+    flipped = code_flips(fwd_codes, route_codes, L, "recurrent: hymba ring decode")
+    dec = rows_close("recurrent: hymba ring decode", step, want,
+                     None if flipped is None else flipped[:, -1:])
+    del params, caches, fwd_codes, route_codes
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(model=cfg.name, layers=L, windows=[layer.window for layer in cfg.layer_list()],
+                reduced="depth 32 -> 2: one global, one local layer", cache_slots=ring,
+                forward_launches={k: launches[k] for k in ("gated_attention", "vq_assign")},
+                decode=dict(steps=n_dec, seconds_with_codes_recorded=decode_s,
+                            ms_per_step=decode_s / n_dec * 1e3, **dec))
+
+
 SWEEPS = ("delta_gate", "vq_assign", "patch", "gated_attention")
 
 
@@ -2240,7 +2598,7 @@ def main() -> int:
     vqs += [check_vq_assign(vqk, gen, 1, N, dv=dv) for N, dv in FAMILY_VQ]
     gas = [check_gated_attention(gak, gen, n) for n in (1024, 1000, 37)]
     gas += [check_gated_attention(gak, gen, nq, nk, BH=BH, dh=dh)
-            for BH, nq, nk, dh in WIDE_ATTENTION]
+            for BH, nq, nk, dh in WIDE_ATTENTION + HYMBA_ATTENTION]
     ips = [check_incr_patch(ipk, gen, C) for C in (8, 72, 264)]
     ips.append(check_incr_patch(ipk, gen, 1032, B=1))  # the most served step
     emit("kernels", seconds=time.perf_counter() - t0, fused_step=fused,
@@ -2397,6 +2755,13 @@ def main() -> int:
     fam = dict(phi4=phi4_phase(), gemma3=gemma3_phase(), smoke=smoke_families())
     emit("families", seconds=time.perf_counter() - t0, nvidia_smi=smi, **fam)
 
+    # ---- 17. recurrent: rwkv6 and hymba
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = dict(rwkv6=rwkv6_phase(), hymba=hymba_phase(), hymba_ring=hymba_ring_phase())
+    emit("recurrent", seconds=time.perf_counter() - t0, nvidia_smi=smi, **rec)
+
     # ---- summary
     c72 = next(f for f in fused if f["C"] == 72 and f["mask"] == "random")
     r_top = max(gate_rows, key=gate_rows.get)  # the most served r
@@ -2435,23 +2800,29 @@ def main() -> int:
             max_abs_err=max(e["max_abs_err"] for e in errs), ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None))
-    # the families' shapes: launches from the phase 16 forwards (one phi4
-    # forward, one gemma3 pattern forward)
+    # the families' shapes: launches from the phase 16 and 17 forwards (one
+    # phi4 forward, one gemma3 pattern forward, one hymba forward)
+    shape_row = lambda g, launches: dict(  # noqa: E731
+        dh=g["dh"], BH=g["BH"], n=g["nq"], launches=launches, max_abs_err=g["max_abs_err"],
+        ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"], bound_by=g["bound_by"],
+        library_ms=None)
     family_launches = {128: fam["phi4"]["launches"]["gated_attention"],
                        256: fam["gemma3"]["launches"]["gated_attention"]}
-    wide = [dict(dh=g["dh"], BH=g["BH"], n=g["nq"], launches=family_launches[g["dh"]],
-                 max_abs_err=g["max_abs_err"], ms=g["ms"], plain_ms=g["plain_ms"],
-                 bound_ms=g["bound_ms"], bound_by=g["bound_by"], library_ms=None)
+    wide = [shape_row(g, family_launches[g["dh"]])
             for g in gas if g["dh"] != 64 and g["nq"] != 1000]
+    ga_hymba = next(g for g in gas if g["BH"] == 25 and g["nq"] == 4096)
     next(k for k in kernels if k["name"] == "gated_attention").update(
         cores=GA_CORES, bound_fp32_ms=ga1024["bound_fp32_ms"],
-        bound_tc_3xtf32_ms=ga1024["bound_tc_3xtf32_ms"], head_dims=wide)
+        bound_tc_3xtf32_ms=ga1024["bound_tc_3xtf32_ms"], head_dims=wide,
+        hymba=shape_row(ga_hymba, rec["hymba"]["launches"]["gated_attention"]))
     # the families' forwards: one phi4 forward (dv 1536), one gemma3 pattern
-    # forward (dv 2048)
-    for dv, N, model in ((1536, 4096, "phi4"), (2048, 3072, "gemma3")):
+    # forward (dv 2048), one hymba forward (dv 800)
+    for dv, N, launches in ((1536, 4096, fam["phi4"]["launches"]["vq_assign"]),
+                            (2048, 3072, fam["gemma3"]["launches"]["vq_assign"]),
+                            (800, 4096, rec["hymba"]["launches"]["vq_assign"])):
         row = next(v for v in vqs if v["dv"] == dv and v["N"] == N)
         next(k for k in kernels if k["name"] == "vq_assign")[f"dv{dv}"] = dict(
-            N=N, launches=fam[model]["launches"]["vq_assign"],
+            N=N, launches=launches,
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None)
     print(smi, flush=True)

@@ -1,8 +1,9 @@
 """Architecture registry of the port: the paper's own model
-(``vq_opt_125m``) and the reference's dense-attention families. Each module
-has ``config()`` (full size, the reference's values) and ``smoke_config()``
-(reduced, for CPU tests). The recurrent and MLA/MoE architectures raise
-until their families land (ROADMAP Queue A items 9b and 9c)."""
+(``vq_opt_125m``), the reference's dense-attention families and its
+recurrent ones (hymba, rwkv6). Each module has ``config()`` (full size, the
+reference's values) and ``smoke_config()`` (reduced, for CPU tests). The
+MLA/MoE architectures raise until their family lands (ROADMAP Queue A
+item 9c)."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +16,8 @@ _ALIASES = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "stablelm-1.6b": "stablelm_1_6b",
+    "hymba-1.5b": "hymba_1_5b",
+    "rwkv6-7b": "rwkv6_7b",
     "vq-opt-125m": "vq_opt_125m",
 }
 
@@ -22,8 +25,6 @@ _ALIASES = {
 _LATER = {
     "deepseek_v2_236b": "9c (MLA and MoE)",
     "deepseek_v3_671b": "9c (MLA and MoE)",
-    "hymba_1_5b": "9b (recurrent families)",
-    "rwkv6_7b": "9b (recurrent families)",
 }
 
 

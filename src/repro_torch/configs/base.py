@@ -1,8 +1,8 @@
 """Architecture configuration schema — the subset of ``repro/configs/base.py``
-the dense-attention families need (``ArchConfig``, ``LayerCfg``,
-``uniform_stages``, ``reduce_for_smoke``). The MoE, MLA, SSM and RWKV
-sub-configs and ``mtp`` come with the recurrent and MLA/MoE families
-(ROADMAP Queue A items 9b and 9c).
+the dense-attention and recurrent families need (``ArchConfig``,
+``LayerCfg``, ``SSMCfg``, ``RWKVCfg``, ``uniform_stages``,
+``reduce_for_smoke``). The MoE and MLA sub-configs and ``mtp`` come with
+the MLA/MoE families (ROADMAP Queue A item 9c).
 
 The reference module imports ``core/vq`` and through it jax, so the port
 keeps its own copy. Field names and defaults match the reference so one
@@ -20,9 +20,24 @@ from repro_torch.core.vq import VQConfig
 
 
 @dataclass(frozen=True)
+class SSMCfg:
+    """Mamba2-style SSD branch (Hymba)."""
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    n_ssm_heads: int = 8  # heads for the SSD scalar-decay recurrence
+
+
+@dataclass(frozen=True)
+class RWKVCfg:
+    head_dim: int = 64
+    decay_lora: int = 64
+
+
+@dataclass(frozen=True)
 class LayerCfg:
-    mixer: str  # 'gqa' is the only mixer the port serves so far
-    ffn: str  # 'swiglu' | 'geglu' | 'gelu' | 'relu' | 'relu2'
+    mixer: str  # 'gqa' | 'hymba' | 'rwkv6'
+    ffn: str  # 'swiglu' | 'geglu' | 'gelu' | 'relu' | 'relu2' | 'rwkv_cm'
     window: Optional[int] = None  # sliding-window size; None = global
 
 
@@ -45,6 +60,8 @@ class ArchConfig:
     pos_pool: int = 0  # for pos == 'sampled'
     attn_softmax: bool = True  # False -> element-wise σ (VQT, paper eq. 1)
     attn_bias: bool = False
+    ssm: Optional[SSMCfg] = None
+    rwkv: Optional[RWKVCfg] = None
     vqt: Optional[VQConfig] = None
     # multimodal stubs: 'tokens' | 'audio_codes' | 'vlm'
     input_mode: str = "tokens"
@@ -81,7 +98,7 @@ def reduce_for_smoke(cfg: ArchConfig, *, d_model: int = 256, n_layers: int = 2,
                      n_heads: int = 4, n_kv_heads: int = 2, d_ff: int = 512,
                      vocab: int = 512, max_seq: int = 128) -> ArchConfig:
     """Produce a reduced same-family variant (<=2 layers, d<=512), exactly
-    as the reference does for the dense families."""
+    as the reference does for the dense and recurrent families."""
     changes = dict(
         name=cfg.name + "-smoke",
         d_model=d_model,
@@ -93,6 +110,10 @@ def reduce_for_smoke(cfg: ArchConfig, *, d_model: int = 256, n_layers: int = 2,
         max_seq=max_seq,
         head_dim=None,
     )
+    if cfg.ssm is not None:
+        changes["ssm"] = SSMCfg(d_state=16, d_conv=4, expand=2, n_ssm_heads=2)
+    if cfg.rwkv is not None:
+        changes["rwkv"] = RWKVCfg(head_dim=32, decay_lora=16)
     if cfg.pos == "sampled":
         changes["pos_pool"] = max_seq * 16
     # Rebuild stages with the same *kind* of pattern but n_layers layers.

@@ -1,9 +1,9 @@
 """Multi-head vector quantization (paper §3 eq. 1, §4) — the inference
-half of ``repro/core/vq.py``: ``VQConfig``, ``scores``, ``assign``,
-``lookup`` and ``quantize``. Assignment uses the inner-product form of the
-Euclidean distance (App. A.2): ``argmin ‖x − c‖² == argmax (x·c − ‖c‖²/2)``.
-``quantize`` runs the ``vq_assign`` kernel; training-mode VQ (Gumbel
-straight-through) comes with the training slice.
+half of ``repro/core/vq.py``: ``VQConfig``, ``init``, ``scores``,
+``assign``, ``lookup`` and ``quantize``. Assignment uses the inner-product
+form of the Euclidean distance (App. A.2): ``argmin ‖x − c‖² == argmax
+(x·c − ‖c‖²/2)``. ``quantize`` runs the ``vq_assign`` kernel; training-mode
+VQ (Gumbel straight-through) comes with the training slice.
 """
 from __future__ import annotations
 
@@ -21,6 +21,17 @@ class VQConfig:
     commitment_beta: float = 0.25
     # Gumbel-softmax temperature used during training.
     temperature: float = 1.0
+
+
+def init(gen: torch.Generator, d_model: int, cfg: VQConfig, repeat: tuple = ()) -> dict:
+    """A layer's ``{"codebook": [*repeat, hq, Q, d_model / hq]}``: normals
+    times 0.5 (the scale of normalized activations), drawn on the
+    generator's device, with leading ``repeat`` dims (a stage's layers)."""
+    if d_model % cfg.n_heads:
+        raise ValueError(f"d_model={d_model} not divisible by vq heads={cfg.n_heads}")
+    shape = repeat + (cfg.n_heads, cfg.codebook_size, d_model // cfg.n_heads)
+    return {"codebook": torch.randn(shape, generator=gen, dtype=torch.float32,
+                                    device=gen.device).mul_(0.5)}
 
 
 # ---------------------------------------------------------------- inference

@@ -1,14 +1,15 @@
 """Serve small models of several architectures with batched greedy decode:
 a KV cache (stablelm), ring-buffer sliding-window caches (gemma3's local
-layers) and multi-codebook audio tokens (musicgen).
+layers), Mamba SSM and conv states beside a KV cache (hymba), RWKV states
+(rwkv6) and multi-codebook audio tokens (musicgen).
 
     PYTHONPATH=src python -m repro_torch.examples.multiarch_decode [--device cpu] [--vqt]
 
 The port's counterpart of ``examples/multiarch_decode.py``, at the reduced
-configs with the port's seeded weights. The reference's MLA, Mamba and RWKV
-architectures are not ported yet and print a line naming their ROADMAP
-item. Each decode is checked against a forward over the same tokens (the
-last step's logits within 2e-3).
+configs with the port's seeded weights. The reference's MLA architecture is
+not ported yet and prints a line naming its ROADMAP item. Each decode is
+checked against a forward over the same tokens (the last step's logits
+within 2e-3).
 """
 from __future__ import annotations
 

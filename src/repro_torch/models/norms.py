@@ -1,7 +1,7 @@
-"""Normalization layers — the LayerNorm and RMSNorm of
-``repro/models/norms.py`` (``groupnorm`` comes with RWKV, ROADMAP Queue A
-item 9b). Params are dicts of tensors; both compute in f32 and cast back to
-the input's dtype."""
+"""Normalization layers — the LayerNorm, RMSNorm and GroupNorm of
+``repro/models/norms.py``. Params are dicts of tensors (``groupnorm`` takes
+its scale and bias directly, as the reference); all compute in f32 and cast
+back to the input's dtype."""
 from __future__ import annotations
 
 import torch
@@ -40,3 +40,16 @@ def apply_norm(kind: str, params: dict, x: torch.Tensor) -> torch.Tensor:
     if kind == "layernorm":
         return layernorm(params, x)
     raise ValueError(kind)
+
+
+def groupnorm(x: torch.Tensor, n_groups: int, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 64e-5) -> torch.Tensor:
+    """GroupNorm over the last dim (RWKV6 on its per-head outputs), with the
+    population variance."""
+    *lead, d = x.shape
+    xf = x.to(torch.float32).reshape(*lead, n_groups, d // n_groups)
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    out = xf.reshape(*lead, d) * scale.to(torch.float32) + bias.to(torch.float32)
+    return out.to(x.dtype)

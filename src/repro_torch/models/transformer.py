@@ -1,7 +1,9 @@
 """The decoder stack — the port of ``repro/models/transformer.py`` for GQA
-attention stacks: the paper's VQ-OPT and the dense-attention families
-(RMSNorm or LayerNorm, RoPE or absolute positions, sliding windows, gated
-or biased FFNs, vision prefixes, multi-codebook audio tokens).
+attention stacks (the paper's VQ-OPT and the dense-attention families:
+RMSNorm or LayerNorm, RoPE or absolute positions, sliding windows, gated
+or biased FFNs, vision prefixes, multi-codebook audio tokens) and the
+recurrent families (Hymba's hybrid attention + SSM mixer, RWKV6's time-mix
+and channel-mix).
 
 A model is a sequence of *stages* ``(pattern, repeat)`` (see
 ``configs.base``). Parameters of a stage are stacked along a leading
@@ -16,11 +18,13 @@ Entry points:
     codes; vision patch embeddings prefixed for VLMs): σ attention through
     the ``gated_attention`` kernel, VQ through ``vq_assign``;
   * ``prefill_step`` / ``decode_step`` — m tokens / one token per sequence
-    against per-layer KV caches (``init_caches``: full caches, ring buffers
-    for windowed layers; ``caches_from_kv``, ``set_cache_length``).
+    against per-layer caches (``init_caches``: full KV caches, ring buffers
+    for windowed layers, SSM / conv / RWKV states; ``caches_from_kv``,
+    ``set_cache_length``). ``prefill_step`` and ``caches_from_kv`` take
+    non-windowed GQA stacks only, as in the reference.
 
-Training, multi-token prediction and the MLA, MoE and recurrent mixers
-come with later slices (ROADMAP Queue A items 9b, 9c and 10).
+Training, multi-token prediction and the MLA and MoE mixers come with
+later slices (ROADMAP Queue A items 9c and 10).
 
 Parameter layout::
 
@@ -32,11 +36,16 @@ Parameter layout::
         norm1/norm2.{scale[, bias]},
         ffn.{w_gate, w_up, w_down} (swiglu, geglu) or
             ffn.{w_up, b_up, w_down, b_down} (gelu, relu, relu2),
+            ffn.{mu, w_k, w_v, w_r} (rwkv_cm, ``models.rwkv6``),
         mixer.{wq, wk, wv, wo[, bq, bk, bv, bo]}, mixer.vq.codebook [hq, Q, d_vq]
+            (gqa; hymba and rwkv6: ``models.hymba``, ``models.rwkv6``)
     lm_head [d, vocab * cb] (untied configurations only)
 
 Caches mirror the stages: a list over stages of tuples over the pattern of
-``{"mix": {"k", "v": [repeat, b, S, Hkv, dh], "len": [repeat, b] int32}}``.
+``{"mix": c}``, every leaf of c stacked over the stage's repeat axis: gqa
+``{"k", "v": [b, S, Hkv, dh], "len": [b] int32}``; hymba ``{"attn": that,
+"ssm_state": [b, H, d_state, dh], "conv_state": [b, d_conv - 1, H·dh]}``;
+rwkv6 ``{"tm": {"S": [b, H, dh, dh], "x_last": [b, d]}, "cm_x_last": [b, d]}``.
 """
 from __future__ import annotations
 
@@ -47,17 +56,20 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, LayerCfg
+from repro_torch.core import vq as vq_mod
+from repro_torch.models import normal
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.attention import (
     attn_apply, attn_cache_init, attn_decode, attn_prefill,
 )
 from repro_torch.models.embedding import embed_tokens, merge_vision
 from repro_torch.models.ffn import ffn_apply
+from repro_torch.models.hymba import hymba_apply, hymba_cache_init, hymba_decode, hymba_init
 from repro_torch.models.norms import apply_norm, norm_init
 
 # mixers and FFNs of later slices -> the ROADMAP Queue A item that ports them
-_LATER = {"mla": "9c (MLA and MoE)", "moe": "9c (MLA and MoE)",
-          "hymba": "9b (recurrent families)", "rwkv6": "9b (recurrent families)",
-          "rwkv_cm": "9b (recurrent families)"}
+_LATER = {"mla": "9c (MLA and MoE)", "moe": "9c (MLA and MoE)"}
+_MIXERS = ("gqa", "hymba", "rwkv6")
 
 
 def _check_mixer(layer: LayerCfg) -> None:
@@ -66,57 +78,55 @@ def _check_mixer(layer: LayerCfg) -> None:
             raise NotImplementedError(
                 f"{kind} layers are not ported yet: they come with ROADMAP Queue A "
                 f"item {_LATER[kind]}")
-    if layer.mixer != "gqa":
+    if layer.mixer not in _MIXERS:
         raise ValueError(f"unknown mixer {layer.mixer!r}")
-
-
-def _normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
-    """Standard normals times ``scale``, drawn on the generator's device."""
-    return torch.randn(shape, generator=gen, dtype=torch.float32,
-                       device=gen.device).mul_(scale)
 
 
 def _ffn_init(gen: torch.Generator, kind: str, d: int, d_ff: int, r: tuple) -> dict:
     if kind in ("swiglu", "geglu"):
-        return {"w_gate": _normal(gen, r + (d, d_ff), d ** -0.5),
-                "w_up": _normal(gen, r + (d, d_ff), d ** -0.5),
-                "w_down": _normal(gen, r + (d_ff, d), d_ff ** -0.5)}
+        return {"w_gate": normal(gen, r + (d, d_ff), d ** -0.5),
+                "w_up": normal(gen, r + (d, d_ff), d ** -0.5),
+                "w_down": normal(gen, r + (d_ff, d), d_ff ** -0.5)}
     if kind in ("gelu", "relu", "relu2"):
-        return {"w_up": _normal(gen, r + (d, d_ff), d ** -0.5),
+        return {"w_up": normal(gen, r + (d, d_ff), d ** -0.5),
                 "b_up": torch.zeros(r + (d_ff,)),
-                "w_down": _normal(gen, r + (d_ff, d), d_ff ** -0.5),
+                "w_down": normal(gen, r + (d_ff, d), d_ff ** -0.5),
                 "b_down": torch.zeros(r + (d,))}
     raise ValueError(kind)
 
 
-def _layer_init(gen: torch.Generator, cfg: ArchConfig, layer: LayerCfg,
-                repeat: int) -> dict:
-    _check_mixer(layer)
+def _attn_init(gen: torch.Generator, cfg: ArchConfig, r: tuple) -> dict:
     d, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     dh = cfg.resolved_head_dim
-    r = (repeat,)
     zeros = lambda *s: torch.zeros(r + s, dtype=torch.float32)
     mixer = {
-        "wq": _normal(gen, r + (d, H * dh), d ** -0.5),
-        "wk": _normal(gen, r + (d, Hkv * dh), d ** -0.5),
-        "wv": _normal(gen, r + (d, Hkv * dh), d ** -0.5),
-        "wo": _normal(gen, r + (H * dh, d), (H * dh) ** -0.5),
+        "wq": normal(gen, r + (d, H * dh), d ** -0.5),
+        "wk": normal(gen, r + (d, Hkv * dh), d ** -0.5),
+        "wv": normal(gen, r + (d, Hkv * dh), d ** -0.5),
+        "wo": normal(gen, r + (H * dh, d), (H * dh) ** -0.5),
     }
     if cfg.attn_bias:
         mixer.update(bq=zeros(H * dh), bk=zeros(Hkv * dh), bv=zeros(Hkv * dh),
                      bo=zeros(d))
     if cfg.vqt is not None:
-        hq = cfg.vqt.n_heads
-        if (H * dh) % hq:
-            raise ValueError(f"d_model={H * dh} not divisible by vq heads={hq}")
-        mixer["vq"] = {"codebook": _normal(
-            gen, r + (hq, cfg.vqt.codebook_size, H * dh // hq), 0.5)}
-    return {
-        "norm1": norm_init(cfg.norm, d, r),
-        "norm2": norm_init(cfg.norm, d, r),
-        "mixer": mixer,
-        "ffn": _ffn_init(gen, layer.ffn, d, cfg.d_ff, r),
-    }
+        mixer["vq"] = vq_mod.init(gen, H * dh, cfg.vqt, r)
+    return mixer
+
+
+def _layer_init(gen: torch.Generator, cfg: ArchConfig, layer: LayerCfg,
+                repeat: int) -> dict:
+    _check_mixer(layer)
+    d, r = cfg.d_model, (repeat,)
+    if layer.mixer == "hymba":
+        mixer = hymba_init(gen, cfg, layer, r)
+    elif layer.mixer == "rwkv6":
+        mixer = rwkv_mod.rwkv_init(gen, cfg, layer, r)
+    else:
+        mixer = _attn_init(gen, cfg, r)
+    ffn = (rwkv_mod.cm_init(gen, cfg, r) if layer.ffn == "rwkv_cm"
+           else _ffn_init(gen, layer.ffn, d, cfg.d_ff, r))
+    return {"norm1": norm_init(cfg.norm, d, r), "norm2": norm_init(cfg.norm, d, r),
+            "mixer": mixer, "ffn": ffn}
 
 
 def _to(tree, device: torch.device):
@@ -138,15 +148,15 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     d = cfg.d_model
     cb = cfg.n_codebooks
     tok_shape = (cb, cfg.vocab, d) if cb > 1 else (cfg.vocab, d)
-    embed = {"tok": _normal(generator, tok_shape, 0.02)}
+    embed = {"tok": normal(generator, tok_shape, 0.02)}
     if cfg.pos == "sampled":
-        embed["pos"] = _normal(generator, (cfg.pos_pool or cfg.max_seq * 100, d), 0.02)
+        embed["pos"] = normal(generator, (cfg.pos_pool or cfg.max_seq * 100, d), 0.02)
     elif cfg.pos == "learned":
-        embed["pos"] = _normal(generator, (cfg.max_seq, d), 0.02)
+        embed["pos"] = normal(generator, (cfg.max_seq, d), 0.02)
     elif cfg.pos not in ("rope", "none"):
         raise ValueError(f"unknown pos={cfg.pos!r}")
     if cfg.input_mode == "vlm":
-        embed["vis_proj"] = _normal(generator, (d, d), d ** -0.5)
+        embed["vis_proj"] = normal(generator, (d, d), d ** -0.5)
     params: dict = {"embed": embed}
     params["stages"] = [
         tuple(_layer_init(generator, cfg, layer, repeat) for layer in pattern)
@@ -154,7 +164,7 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     ]
     params["final_norm"] = norm_init(cfg.norm, d)
     if not cfg.tie_embeddings:
-        params["lm_head"] = _normal(generator, (d, cfg.vocab * max(cb, 1)), d ** -0.5)
+        params["lm_head"] = normal(generator, (d, cfg.vocab * max(cb, 1)), d ** -0.5)
     return _to(params, dev)
 
 
@@ -203,10 +213,20 @@ def _layer_fwd(lp: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
     """Pre-norm block: x + mixer(n1(x)); then x + ffn(n2(x))."""
     _check_mixer(layer)
     h = apply_norm(cfg.norm, lp["norm1"], x)
-    mix, aux = attn_apply(lp["mixer"], cfg, layer, h, positions)
+    if layer.mixer == "hymba":
+        mix, aux = hymba_apply(lp["mixer"], cfg, layer, h, positions)
+    elif layer.mixer == "rwkv6":
+        mix, _, _ = rwkv_mod.rwkv_time_mix(lp["mixer"], cfg, h)
+        aux = torch.zeros((), device=x.device)
+    else:
+        mix, aux = attn_apply(lp["mixer"], cfg, layer, h, positions)
     x = x + mix
     h2 = apply_norm(cfg.norm, lp["norm2"], x)
-    return x + ffn_apply(layer.ffn, lp["ffn"], h2), aux
+    if layer.ffn == "rwkv_cm":
+        y, _ = rwkv_mod.rwkv_channel_mix(lp["ffn"], h2)
+    else:
+        y = ffn_apply(layer.ffn, lp["ffn"], h2)
+    return x + y, aux
 
 
 def _head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -261,21 +281,25 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------- caches
 
 
+def _layer_cache_init(cfg: ArchConfig, layer: LayerCfg, batch: int, seq_len: int,
+                      dtype, device) -> dict:
+    _check_mixer(layer)
+    if layer.mixer == "hymba":
+        return hymba_cache_init(cfg, layer, batch, seq_len, dtype, device)
+    if layer.mixer == "rwkv6":
+        return rwkv_mod.rwkv_state_init(cfg, batch, dtype, device)
+    return attn_cache_init(cfg, layer, batch, seq_len, dtype, device)
+
+
 def init_caches(cfg: ArchConfig, batch: int, seq_len: int, dtype=torch.float32,
                 device="cuda") -> list:
     """Per-stage stacked zero caches mirroring the parameter structure: a
     ring of ``min(window, seq_len)`` slots for windowed layers (f32 by
     default: the reference's bf16 default is not served by the port)."""
     dev = resolve_device(device)
-    caches = []
-    for pattern, repeat in cfg.stages:
-        per_layer = []
-        for layer in pattern:
-            _check_mixer(layer)
-            c = attn_cache_init(cfg, layer, batch, seq_len, dtype, dev)
-            per_layer.append({"mix": {k: torch.stack([t] * repeat) for k, t in c.items()}})
-        caches.append(tuple(per_layer))
-    return caches
+    return [tuple({"mix": _stack([_layer_cache_init(cfg, layer, batch, seq_len, dtype, dev)]
+                                 * repeat)} for layer in pattern)
+            for pattern, repeat in cfg.stages]
 
 
 def chunkable(cfg: ArchConfig) -> bool:
@@ -286,10 +310,43 @@ def chunkable(cfg: ArchConfig) -> bool:
                     and layer.ffn != "rwkv_cm" for layer in cfg.layer_list()))
 
 
+def _layer_prefill(lp: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
+                   cache: dict, positions: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """m tokens through one (non-windowed GQA) layer against its KV cache.
+    Returns (x, the layer's new cache)."""
+    h = apply_norm(cfg.norm, lp["norm1"], x)
+    mix, mc = attn_prefill(lp["mixer"], cfg, layer, h, cache["mix"], positions)
+    x = x + mix
+    h2 = apply_norm(cfg.norm, lp["norm2"], x)
+    return x + ffn_apply(layer.ffn, lp["ffn"], h2), mc
+
+
+def _layer_decode(lp: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
+                  cache: dict, positions: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """One token through one layer of any mixer against its cache. rwkv6
+    carries its channel-mix token shift (``cm_x_last``) in the mixer's
+    cache, as the reference. Returns (x, the layer's new cache)."""
+    h = apply_norm(cfg.norm, lp["norm1"], x)
+    if layer.mixer == "hymba":
+        mix, mc = hymba_decode(lp["mixer"], cfg, layer, h, cache["mix"], positions)
+    elif layer.mixer == "rwkv6":
+        mix, tm = rwkv_mod.rwkv_time_mix_step(lp["mixer"], cfg, h, cache["mix"]["tm"])
+        mc = {"tm": tm, "cm_x_last": cache["mix"]["cm_x_last"]}
+    else:
+        mix, mc = attn_decode(lp["mixer"], cfg, layer, h, cache["mix"], positions)
+    x = x + mix
+    h2 = apply_norm(cfg.norm, lp["norm2"], x)
+    if layer.ffn == "rwkv_cm":
+        y, mc["cm_x_last"] = rwkv_mod.rwkv_channel_mix(lp["ffn"], h2, cache["mix"]["cm_x_last"])
+    else:
+        y = ffn_apply(layer.ffn, lp["ffn"], h2)
+    return x + y, mc
+
+
 def _run_cached(params: dict, cfg: ArchConfig, tokens, caches: list, positions,
-                attn_step) -> tuple[torch.Tensor, list]:
+                layer_step) -> tuple[torch.Tensor, list]:
     """The stage loop shared by ``prefill_step`` and ``decode_step``:
-    ``attn_step`` is ``attn_prefill`` or ``attn_decode``."""
+    ``layer_step`` is ``_layer_prefill`` or ``_layer_decode``."""
     x = embed_tokens(params["embed"], cfg, tokens, positions)
     new_caches = []
     for (pattern, repeat), sp, sc in zip(cfg.stages, params["stages"], caches):
@@ -299,12 +356,7 @@ def _run_cached(params: dict, cfg: ArchConfig, tokens, caches: list, positions,
             new_scr = []
             for pi, layer in enumerate(pattern):
                 _check_mixer(layer)
-                lp = spr[pi]
-                h = apply_norm(cfg.norm, lp["norm1"], x)
-                mix, mc = attn_step(lp["mixer"], cfg, layer, h, scr[pi]["mix"], positions)
-                x = x + mix
-                h2 = apply_norm(cfg.norm, lp["norm2"], x)
-                x = x + ffn_apply(layer.ffn, lp["ffn"], h2)
+                x, mc = layer_step(spr[pi], cfg, layer, x, scr[pi], positions)
                 new_scr.append({"mix": mc})
             per_repeat.append(tuple(new_scr))
         new_caches.append(_stack(per_repeat))
@@ -320,14 +372,14 @@ def prefill_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         raise ValueError(
             f"{cfg.name}: chunked prefill requires non-windowed gqa layers "
             "over plain tokens — use per-token decode_step instead")
-    return _run_cached(params, cfg, tokens, caches, positions, attn_prefill)
+    return _run_cached(params, cfg, tokens, caches, positions, _layer_prefill)
 
 
 def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                 caches: list, positions: torch.Tensor) -> tuple[torch.Tensor, list]:
     """One new token per sequence. tokens: [b, 1] (audio [b, 1, cb]).
     Returns (logits [b, 1, ...], new caches)."""
-    return _run_cached(params, cfg, tokens, caches, positions, attn_decode)
+    return _run_cached(params, cfg, tokens, caches, positions, _layer_decode)
 
 
 def caches_from_kv(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor, length, *,

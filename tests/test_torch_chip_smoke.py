@@ -1,6 +1,7 @@
 """``chip_smoke.py``'s arithmetic that needs no card: the work and bounds it
 states for ``gated_attention`` on each route and for ``delta_gate``, and the
 budgets of its tiered phase."""
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -219,3 +220,53 @@ def test_families_phase_gates_pass_on_the_cpu(monkeypatch):
     assert smoke["h2o-danube-1.8b+vqt"]["launches"] == {"gated_attention": 0, "vq_assign": 2}
     assert smoke["internvl2-1b"]["vision_logits"] == [2, 40, 512]
     assert len(smoke) == 8
+
+
+def test_recurrent_phase_gates_pass_on_the_cpu(monkeypatch):
+    """Phase 17's gates at smoke size on the CPU: rwkv6 (no kernel launch,
+    the chunked scan against the sequential one on a length the chunk does
+    not divide, decode against the forward), hymba with VQT on a variant
+    whose second layer is windowed (``gated_attention`` in the global
+    layer, the windowed one streamed with STREAM_THRESHOLD lowered to 64,
+    ``vq_assign`` in both, decode against the forward, the softmax model
+    streaming both), and the two-layer ring decode past a 16-slot window.
+    The wrappers' CPU calls are counted as launches, the timers stubbed."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import LayerCfg
+    from repro_torch.core import vq as vq_mod
+    from repro_torch.kernels import gated_attention as gak
+    from repro_torch.kernels import vq_assign as vqk
+    from repro_torch.models import attention
+
+    def counted(mod, name, fn):
+        def call(*a):
+            mod.LAUNCHES[name] += 1
+            return fn(*a)
+        return call
+
+    monkeypatch.setattr(attention, "gated_attention",
+                        counted(gak, "gated_attention", attention.gated_attention))
+    monkeypatch.setattr(vq_mod, "vq_assign", counted(vqk, "vq_assign", vq_mod.vq_assign))
+    monkeypatch.setattr(attention, "STREAM_THRESHOLD", 64)
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "time_ms", lambda fn, warmup=3, iters=25: (fn(), 1.0)[1])
+    monkeypatch.setattr(cs, "profiled", lambda fn, names, top: (fn(), dict(
+        device_busy_ms=1.0, wall_ms_profiled=1.0, device_idle_share=0.0, kernels={},
+        top_kernels=[]))[1])
+    rwkv = cs.rwkv6_phase(cfg=get_config("rwkv6-7b", smoke=True), n=40, n_dec=8)
+    assert rwkv["layer0_scan"]["chunks"] == 3
+    assert rwkv["layer0_scan"]["chunked_vs_sequential_max_abs_err"] < 1e-4
+    assert rwkv["decode"]["max_logits_diff"] < 2e-3
+    smoke = get_config("hymba-1.5b", smoke=True, vqt=True)
+    windowed = dataclasses.replace(smoke, stages=(
+        ((LayerCfg("hymba", "swiglu"),), 1), ((LayerCfg("hymba", "swiglu", window=16),), 1)))
+    hym = cs.hymba_phase(cfg=windowed, n=96, n_dec=8)
+    assert hym["launches"] == {"gated_attention": 1, "vq_assign": 2}
+    assert hym["attention_routes"] == {"gated_attention": {"4x96x64": 1}, "streaming": 1}
+    assert hym["softmax"]["attention_routes"] == {"gated_attention": {}, "streaming": 2}
+    assert hym["layer0_scan"]["chunked_vs_sequential_max_abs_err"] < 1e-4
+    assert hym["decode"]["max_logits_diff"] < 2e-3
+    ring = cs.hymba_ring_phase(cfg=windowed, n_dec=40)
+    assert ring["cache_slots"] == [40, 16] and ring["windows"] == [None, 16]
+    assert ring["forward_launches"] == {"gated_attention": 1, "vq_assign": 2}
+    assert ring["decode"]["max_logits_diff"] < 2e-3

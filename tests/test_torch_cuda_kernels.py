@@ -223,7 +223,7 @@ def _vq_check(x, cb, idx, xq, near):
     assert torch.equal(xq.reshape(N, hq, -1), cb[heads, idx.long()])
 
 
-@pytest.mark.parametrize("dv", [24, 30, 128, 384, 1536, 2048])  # 30: the scalar path
+@pytest.mark.parametrize("dv", [24, 30, 128, 384, 800, 1536, 2048])  # 30: the scalar path
 @pytest.mark.parametrize("Q", [48, 64, 256])
 @pytest.mark.parametrize("N", [1, 37, 1024])
 def test_vq_assign_kernel_matches_plain(dev, monkeypatch, dv, Q, N, hq=2):
@@ -280,6 +280,7 @@ def _qkv(dev, BH, nq, nk, amp=1.0, seed=None, dh=64):
     (4, 1024, 512, 1),    # nq > nk: rows past nk attend every key
     (4, 512, 1024, 1),    # nq < nk
     (8, 300, 300, 3),     # |s| up to ~10: the split's error and the GELU's tail
+    (25, 4096, 4096, 1), (25, 1000, 1000, 1),  # hymba's global layers (25 heads)
 ])
 def test_gated_attention_kernel_matches_plain(dev, BH, nq, nk, amp):
     q, k, v = _qkv(dev, BH, nq, nk, amp)
@@ -378,6 +379,21 @@ def test_gated_attention_model_layout_gqa_wide(dev):
     fold = lambda a: a.repeat_interleave(24 // a.shape[2], 2).transpose(1, 2).reshape(24, 300, 128)
     want = ga.gated_attention_ref(fold(q), fold(k), fold(v))
     want = want.reshape(1, 24, 300, 128).transpose(1, 2).reshape(1, 300, 24 * 128)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+
+
+def test_gated_attention_model_layout_gqa_hymba(dev):
+    """hymba's layout: 25 query heads over 5 kv heads of 64 (BH = 25)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((1, 300, 25, 64), generator=gen, device=dev) * 0.5
+    k = torch.randn((1, 300, 5, 64), generator=gen, device=dev) * 0.5
+    v = torch.randn((1, 300, 5, 64), generator=gen, device=dev)
+    before = ga.LAUNCHES["gated_attention"]
+    out = ga.gated_attention(q, k, v)
+    assert ga.LAUNCHES["gated_attention"] == before + 1
+    fold = lambda a: a.repeat_interleave(25 // a.shape[2], 2).transpose(1, 2).reshape(25, 300, 64)
+    want = ga.gated_attention_ref(fold(q), fold(k), fold(v))
+    want = want.reshape(1, 25, 300, 64).transpose(1, 2).reshape(1, 300, 25 * 64)
     torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
 
 

@@ -21,6 +21,7 @@ from repro.models.norms import layernorm as ref_layernorm  # noqa: E402
 from repro.models.norms import rmsnorm as ref_rmsnorm  # noqa: E402
 from repro.serving.decode import greedy_decode as ref_greedy_decode  # noqa: E402
 from repro.serving.jit_engine import JitIncrementalEngine as RefEngine  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import LayerCfg, uniform_stages  # noqa: E402
 from repro_torch.configs.vq_opt_125m import smoke_config as port_smoke  # noqa: E402
 from repro_torch.models import transformer as PT  # noqa: E402
@@ -113,19 +114,26 @@ def test_forward_last_row_matches_engine_full_forward(setup):
 
 
 def test_unported_modes_raise(setup):
-    """Training and the MLA / recurrent mixers still raise, naming the
-    ROADMAP item that ports them; vision inputs and windowed (ring) caches
-    now work."""
+    """Training and the MLA mixer still raise, naming the ROADMAP item that
+    ports them; the recurrent mixers (hymba, rwkv6 with its channel-mix),
+    vision inputs and windowed (ring) caches now work."""
     _, _, _, tp = setup
     toks = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="item 10"):
         PT.forward(tp, port_smoke(), toks, train=True)
-    for mixer, item in (("mla", "9c"), ("hymba", "9b"), ("rwkv6", "9b")):
-        other = dataclasses.replace(port_smoke(), stages=uniform_stages(LayerCfg(mixer, "gelu"), 2))
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            PT.init_caches(other, 1, 4, device="cpu")
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            PT.init_params(other, generator=torch.Generator().manual_seed(0), device="cpu")
+    other = dataclasses.replace(port_smoke(), stages=uniform_stages(LayerCfg("mla", "gelu"), 2))
+    with pytest.raises(NotImplementedError, match="item 9c"):
+        PT.init_caches(other, 1, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9c"):
+        PT.init_params(other, generator=torch.Generator().manual_seed(0), device="cpu")
+    for arch, mixer, ffn in (("hymba-1.5b", "hymba", "swiglu"), ("rwkv6-7b", "rwkv6", "rwkv_cm")):
+        cfg = get_config(arch, smoke=True)
+        assert {(layer.mixer, layer.ffn) for layer in cfg.layer_list()} == {(mixer, ffn)}
+        caches = PT.init_caches(cfg, 1, 4, device="cpu")
+        params = PT.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+        assert len(caches) == len(params["stages"]) == len(cfg.stages)
+        assert set(params["stages"][0][0]["mixer"]) >= ({"wq", "w_xz"} if mixer == "hymba"
+                                                        else {"w_r", "w_dec_a"})
     vlm = dataclasses.replace(port_smoke(), input_mode="vlm")
     vp = dict(tp, embed=dict(tp["embed"], vis_proj=torch.eye(vlm.d_model)))
     patches = torch.randn((1, 2, vlm.d_model), generator=torch.Generator().manual_seed(0))
