@@ -23,7 +23,7 @@ and exits non-zero):
                 (a one-element ``zero_()``), ``vq_assign`` (hq=2,
                 Q=64, dv=384; B=4 x N=1024, N=1024, N=32 and N=1, and
                 the families' (N, dv) of ``FAMILY_VQ``, hymba's dv=800
-                among them: idx equal away from
+                and deepseek's dv=8192 among them: idx equal away from
                 near-ties, x_q bitwise the codebook row; the VQ kernel's own
                 device time by name beside the wrapper's),
                 ``gated_attention`` (BH=48, dh=64, n in {1024, 1000, 37};
@@ -187,6 +187,27 @@ and exits non-zero):
                 cut to one global and one local layer: 1,100 decode steps
                 past the 1,024-slot ring, the last within 2e-3 of a
                 [1, 1100] forward.
+18. moe       — the MLA / MoE families (``deepseek_v2_phase``,
+                ``deepseek_v3_phase``), weights drawn on the card from seed
+                0. deepseek-v2-236b with VQT at full width (d 5120, 128
+                heads, MLA kv_lora 512, 160 experts top-6 + 2 shared),
+                depth cut 60 -> 3 (the dense layer, 2 MoE layers; 9.3 B
+                parameters): a [1, 4096] forward (MLA streamed, 3
+                ``vq_assign`` launches at N=4096, dv=8192, no
+                ``gated_attention``; finite logits and aux loss), timed
+                and profiled; layer 0's MLA through the streaming and the
+                dense path within 2e-5; MoE layer 1 on 256 tokens, the
+                routed dispatch against the reference's loop form (every
+                expert on every token) within 2e-5, and ``moe_per_code``
+                on 64 rows indexed by [4, 1024] against the dense MoE,
+                each pair timed; 64 decode steps, the last within 2e-3 of
+                a [1, 64] forward (a token whose VQ code or routing flipped
+                at a near tie, router k-th and (k+1)-th probabilities
+                within 1e-5, exempt and counted), one more step profiled.
+                deepseek-v3-671b with VQT and its MTP head at full width,
+                cut 61 -> 2 (one dense, one MoE layer of 256 experts): a
+                [1, 1024] forward (finite ``logits`` and ``mtp_logits``,
+                2 ``vq_assign``), 16 decode steps checked the same way.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line
 (``delta_gate`` at the threshold phase's most served r), and the last line
@@ -198,6 +219,7 @@ kernels line come from the path that runs each kernel (serve for
 ``gated_attention``'s ``head_dims`` and ``vq_assign``'s ``dv1536`` and
 ``dv2048`` from the families phase's forwards, ``gated_attention``'s
 ``hymba`` and ``vq_assign``'s ``dv800`` from the recurrent phase's hymba
+forward, ``vq_assign``'s ``dv8192`` from the moe phase's deepseek-v2
 forward),
 with the counters set to 0 just before that path; launches made to compare
 or time a kernel do not count. Exits non-zero without a GPU
@@ -505,11 +527,13 @@ def sweep_delta_gate(ops, ref, gen) -> None:
         emit("sweep", **row, shapes_ms=shapes)
 
 
-# the (tokens, dv) of phases 16 and 17's vq_assign calls: phi4-mini's
-# forward, prefill chunks and decode steps (dv 1536), gemma3's forward and
-# decode steps (dv 2048), hymba's forward and decode steps (dv 800)
+# the (tokens, dv) of phases 16-18's vq_assign calls: phi4-mini's forward,
+# prefill chunks and decode steps (dv 1536), gemma3's forward and decode
+# steps (dv 2048), hymba's forward and decode steps (dv 800), deepseek-v2's
+# forward, deepseek-v3's forward and both decode steps (dv 8192: 128 heads
+# of v 128 over 2 VQ heads)
 FAMILY_VQ = ((4096, 1536), (1024, 1536), (1, 1536), (3072, 2048), (1, 2048),
-             (4096, 800), (1, 800))
+             (4096, 800), (1, 800), (4096, 8192), (1024, 8192), (1, 8192))
 
 
 def check_vq_assign(mod, gen, B: int, N: int, hq=2, Q=64, dv=384):
@@ -754,7 +778,8 @@ def profiled(fn, names, top: int) -> dict:
     """``fn()`` once under torch.profiler: its wall time (ends in a sync),
     the device's busy time and idle share, the summed device time and
     launches of the kernels whose names hold each of ``names``, and the
-    ``top`` kernels by device time. Only the device's activity is traced:
+    ``top`` kernels by device time, and the count of device records (kernels
+    and copies) it traced. Only the device's activity is traced:
     host-op records would lengthen the wall time the idle share is taken
     over, and their post-processing outlasts a traced forward of tens of
     thousands of launches many times over."""
@@ -774,7 +799,8 @@ def profiled(fn, names, top: int) -> dict:
                for name in names for mine in [[e for e in dev if name in e.key]]}
     ranked = sorted(dev, key=lambda e: -e.self_device_time_total)[:top]
     return dict(wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
-                device_idle_share=1.0 - busy_ms / wall_ms, kernels=by_name,
+                device_idle_share=1.0 - busy_ms / wall_ms,
+                device_launches=sum(e.count for e in dev), kernels=by_name,
                 top_kernels=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
                                   count=e.count) for e in ranked])
 
@@ -2533,6 +2559,400 @@ def hymba_ring_phase(cfg=None, n_dec: int = 1100, device=None) -> dict:
                             ms_per_step=decode_s / n_dec * 1e3, **dec))
 
 
+# ---------------------------------------------------------- MLA and MoE
+
+ROUTE_TIE = 1e-5  # k-th and (k+1)-th router probabilities this close may swap
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Record every ``models.moe._router`` call while the block runs: its
+    expert ids sorted per token [T, k] and, per token, the gap between the
+    k-th and (k+1)-th router probabilities [T]. Yields the list of (ids,
+    gap) pairs in call order."""
+    from repro_torch.models import moe
+
+    calls = []
+    router = moe._router
+
+    def rec(params, e, x):
+        gates, eidx, aux = router(params, e, x)
+        probs = torch.softmax(x.to(torch.float32) @ params["router"], dim=-1)
+        top = probs.topk(min(e.top_k + 1, e.n_experts), dim=-1).values
+        gap = (top[:, e.top_k - 1] - top[:, e.top_k] if e.top_k < e.n_experts
+               else torch.full_like(top[:, 0], float("inf")))
+        calls.append((eidx.sort(-1).values, gap))
+        return gates, eidx, aux
+
+    with mock.patch.object(moe, "_router", rec):
+        yield calls
+
+
+@contextlib.contextmanager
+def vq_census():
+    """Count ``core.vq``'s ``vq_assign`` calls by "NxDV" (tokens x a VQ
+    head's width) while the block runs. Yields the dict that fills."""
+    from repro_torch.core import vq as vq_mod
+
+    census: dict[str, int] = {}
+    call = vq_mod.vq_assign
+
+    def counted(x, codebook):
+        key = f"{x.numel() // x.shape[-1]}x{codebook.shape[-1]}"
+        census[key] = census.get(key, 0) + 1
+        return call(x, codebook)
+
+    with mock.patch.object(vq_mod, "vq_assign", counted):
+        yield census
+
+
+def route_flips(fwd: list, route: list, L: int, what: str, index=None) -> torch.Tensor:
+    """The router's picks in a forward (``fwd``: one call an MoE layer over
+    all [b·n] tokens) against another route over the same tokens
+    (``route``: one call an MoE layer a decode step, tokens in order; or,
+    with ``index`` [T], one call a layer whose token t is row ``index[t]``,
+    as ``moe_per_code``'s codebook rows). A token whose experts differ in
+    any layer must sit at a near tie (its k-th and (k+1)-th probabilities
+    within ROUTE_TIE in either route), else this raises. Returns the [T]
+    tokens whose picks differ."""
+    f_ids, f_gap = (torch.stack([c[i] for c in fwd]) for i in (0, 1))  # [L, T, k], [L, T]
+    if index is None:
+        r_ids = torch.stack([torch.cat([c[0] for c in route[li::L]]) for li in range(L)])
+        r_gap = torch.stack([torch.cat([c[1] for c in route[li::L]]) for li in range(L)])
+    else:
+        r_ids = torch.stack([c[0][index] for c in route])
+        r_gap = torch.stack([c[1][index] for c in route])
+    differ = (f_ids != r_ids).any(-1)  # [L, T]
+    near = (f_gap <= ROUTE_TIE) | (r_gap <= ROUTE_TIE)
+    if bool((differ & ~near).any()):
+        raise AssertionError(f"{what}: router picks differ away from a near tie")
+    return differ.any(0)
+
+
+def route_ties(calls: list) -> int:
+    """Tokens at a routing near tie, summed over the recorded calls."""
+    return int(sum(int((gap <= ROUTE_TIE).sum()) for _, gap in calls))
+
+
+def moe_loop_form(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The reference's dense MoE loop (``repro/models/moe.py:82-93``):
+    every expert on every token, weighted by its gate (0 where the token
+    did not route to it), in expert order, then the shared experts."""
+    from repro_torch.models import moe
+    from repro_torch.models.ffn import ffn_apply
+
+    e = cfg.moe
+    xt = x.reshape(-1, x.shape[-1])
+    gates, eidx, _ = moe._router(params, e, xt)
+    y = torch.zeros_like(xt)
+    for i in range(e.n_experts):
+        wi = ((eidx == i).to(x.dtype) * gates.to(x.dtype)).sum(-1, keepdim=True)
+        y = y + moe._expert_ffn(params, i, xt) * wi
+    if "shared" in params:
+        y = y + ffn_apply("swiglu", params["shared"], xt)
+    return y.reshape(x.shape)
+
+
+def deepseek_cut(name: str, dense: int, moe_layers: int):
+    """``name``'s full-width config with VQT, depth cut to ``dense`` dense
+    layers then ``moe_layers`` MoE layers (the published first-k-dense
+    layout, shortened)."""
+    from repro_torch.configs import get_config
+
+    full = get_config(name, vqt=True)
+    first, moe_layer = full.stages[0][0][0], full.stages[1][0][0]
+    return dataclasses.replace(full, n_layers=dense + moe_layers, stages=(
+        ((first,), dense), ((moe_layer,), moe_layers))).validate()
+
+
+def mla_stream_check(params: dict, cfg, tokens: torch.Tensor, device) -> dict:
+    """Layer 0's MLA attention output (before VQ and ``wo``) on ``tokens``
+    through ``streaming_attention`` and through the dense scores (forced by
+    raising ``STREAM_THRESHOLD`` past n), within 2e-5
+    (``tests/test_models.py:130-133``)."""
+    from repro_torch.models import attention, mla
+    from repro_torch.models import transformer as T
+    from repro_torch.models.embedding import embed_tokens
+    from repro_torch.models.norms import apply_norm
+
+    n = tokens.shape[1]
+    lp = T._index(params["stages"][0], 0)[0]
+    pos = torch.arange(n, dtype=torch.int32, device=device)[None]
+    h = apply_norm(cfg.norm, lp["norm1"], embed_tokens(params["embed"], cfg, tokens, pos))
+    layer = cfg.layer_list()[0]
+    with mock.patch.object(mla, "_project_out", lambda p, o: o):
+        stream, _ = mla.mla_apply(lp["mixer"], cfg, layer, h, pos)
+        with mock.patch.object(attention, "STREAM_THRESHOLD", n):
+            dense, _ = mla.mla_apply(lp["mixer"], cfg, layer, h, pos)
+    err = float((stream - dense).abs().max())
+    if not torch.allclose(stream, dense, atol=2e-5, rtol=2e-5):
+        raise AssertionError(f"moe: {cfg.name} layer 0 MLA streaming differs from the dense "
+                             f"scores by {err} (atol = rtol = 2e-5)")
+    return dict(tokens=n, streaming_vs_dense_max_abs_err=err,
+                dense_scores_gb=cfg.n_heads * n * n * 4 / 1e9)
+
+
+def moe_layer_checks(params: dict, cfg, tokens: torch.Tensor, n_moe: int, per_code: tuple,
+                     device) -> dict:
+    """MoE layer 1 (the first MoE layer) on the first ``n_moe`` tokens'
+    hidden states: the routed dispatch against ``moe_loop_form`` within
+    atol = rtol = 2e-5 (``tests/test_models.py:192-194``), both timed; then
+    ``moe_per_code`` on a ``Compressed`` of ``per_code`` = (rows, b, n)
+    random rows and indices against the dense MoE on ``to_dense()`` within
+    2e-5, tokens at a routing near tie exempt and counted, both timed. One
+    routed call is profiled: its device launches (the dispatch's host
+    launches, about 8 an expert with tokens) and idle share."""
+    from repro_torch.core.compressed import from_dense_rows
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.embedding import embed_tokens
+    from repro_torch.models.mla import mla_apply
+    from repro_torch.models.norms import apply_norm
+
+    layers = cfg.layer_list()
+    li = next(i for i, layer in enumerate(layers) if layer.ffn == "moe")
+    flat = [lp for (pattern, repeat), sp in zip(cfg.stages, params["stages"])
+            for r in range(repeat) for lp in T._index(sp, r)]
+    toks = tokens[:, :n_moe]
+    pos = torch.arange(n_moe, dtype=torch.int32, device=device)[None]
+    x = embed_tokens(params["embed"], cfg, toks, pos)
+    for i in range(li):
+        x, _ = T._layer_fwd(flat[i], cfg, layers[i], x, pos)
+    lp = flat[li]
+    x = x + mla_apply(lp["mixer"], cfg, layers[li], apply_norm(cfg.norm, lp["norm1"], x), pos)[0]
+    h2 = apply_norm(cfg.norm, lp["norm2"], x)
+    routed, _ = moe.moe_apply_dense(lp["ffn"], cfg, h2)
+    loop = moe_loop_form(lp["ffn"], cfg, h2)
+    err = float((routed - loop).abs().max())
+    if not torch.allclose(routed, loop, atol=2e-5, rtol=2e-5):
+        raise AssertionError(f"moe: {cfg.name} layer {li} routed dispatch differs from the "
+                             f"loop form by {err} (atol = rtol = 2e-5)")
+    routed_call = lambda: moe.moe_apply_dense(lp["ffn"], cfg, h2)  # noqa: E731
+    prof = profiled(routed_call, (), top=3)
+    out = dict(layer=li, tokens=n_moe, routed_vs_loop_max_abs_err=err,
+               routed_ms=time_ms(routed_call, warmup=1, iters=3),
+               loop_ms=time_ms(lambda: moe_loop_form(lp["ffn"], cfg, h2), warmup=1, iters=3),
+               experts_with_tokens=int(moe._router(lp["ffn"], cfg.moe, h2.reshape(
+                   -1, cfg.d_model))[1].unique().numel()),
+               routed_profile={k: prof[k] for k in ("wall_ms_profiled", "device_busy_ms",
+                                                    "device_idle_share", "device_launches")})
+    del routed, loop
+
+    q, b, n = per_code
+    gen = torch.Generator(device=device).manual_seed(2)
+    c = from_dense_rows(torch.randn((q, cfg.d_model), generator=gen, device=device),
+                        torch.randint(0, q, (b, n), generator=gen, device=device))
+    with recorded_routes() as code_routes:
+        y_c, _ = moe.moe_per_code(lp["ffn"], cfg, c)
+    with recorded_routes() as dense_routes:
+        y_d, _ = moe.moe_apply_dense(lp["ffn"], cfg, c.to_dense())
+    flipped = route_flips(dense_routes, code_routes, 1, f"moe: {cfg.name} moe_per_code",
+                          index=c.idx.reshape(-1).long()).reshape(b, n)
+    got, want = y_c.to_dense(), y_d
+    bad = ((got - want).abs() > 2e-5 + 2e-5 * want.abs()).any(-1) & ~flipped
+    if bool(bad.any()) or y_c.codebook.shape[0] != q:
+        raise AssertionError(f"moe: {cfg.name} moe_per_code differs from the dense MoE by "
+                             f"{float((got - want).abs().max())} (atol = rtol = 2e-5) or "
+                             f"kept {y_c.codebook.shape[0]} rows")
+    out["per_code"] = dict(
+        rows=q, index=[b, n], kept_rows=y_c.codebook.shape[0],
+        max_abs_err=float((got - want).abs()[~flipped].max()),
+        route_near_ties=route_ties(dense_routes), route_flips=int(flipped.sum()),
+        per_code_ms=time_ms(lambda: moe.moe_per_code(lp["ffn"], cfg, c), warmup=1, iters=3),
+        dense_ms=time_ms(lambda: moe.moe_apply_dense(lp["ffn"], cfg, c.to_dense()),
+                         warmup=1, iters=3))
+    return out
+
+
+def decode_check(params: dict, cfg, tokens: torch.Tensor, n_dec: int, what: str,
+                 device) -> dict:
+    """``decode_step`` over the first n_dec tokens from empty caches (one
+    slot more, for one more step under the profiler), the last step's logits
+    within 2e-3 of a [1, n_dec] forward (``tests/test_models.py:85-89``)
+    unless the last token's own VQ code flipped at a near tie or its
+    routing did (both counted); every step's gap is reported."""
+    from repro_torch.models import transformer as T
+
+    L = n_layers(cfg)
+    L_moe = sum(layer.ffn == "moe" for layer in cfg.layer_list())
+    toks = tokens[:, :n_dec]
+    with recorded_codes() as fwd_codes, recorded_routes() as fwd_routes:
+        want = T.forward(params, cfg, toks)[0]
+    caches = T.init_caches(cfg, 1, n_dec + 1, device=device)
+    got = []
+    sync(device)
+    t0 = time.perf_counter()
+    with recorded_codes() as step_codes, recorded_routes() as step_routes:
+        for i in range(n_dec):
+            step, caches = T.decode_step(params, cfg, toks[:, i:i + 1], caches,
+                                         torch.full((1, 1), i, dtype=torch.int32, device=device))
+            got.append(step)
+    sync(device)
+    decode_s = time.perf_counter() - t0
+    got = torch.cat(got, dim=1)
+    code_flipped = code_flips(fwd_codes, step_codes, L, what)
+    routed_flipped = route_flips(fwd_routes, step_routes, L_moe, what)[None]  # [1, n_dec]
+    flipped = routed_flipped if code_flipped is None else code_flipped | routed_flipped
+    dec = rows_close(what, got[:, -1:], want[:, -1:], flipped[:, -1:])
+    dec.update(code_flip_rows=0 if code_flipped is None else int(code_flipped.sum()),
+               route_flip_rows=int(routed_flipped.sum()), route_near_ties=route_ties(fwd_routes),
+               max_logits_diff_by_step=[float(e) for e in (got - want).abs().amax(-1)[0]],
+               max_logits_abs=float(want.abs().max()))
+    step_prof = step_profile(lambda: T.decode_step(
+        params, cfg, toks[:, -1:], caches,
+        torch.full((1, 1), n_dec, dtype=torch.int32, device=device)))
+    del caches, got, want
+    return dict(steps=n_dec, seconds_with_codes_recorded=decode_s,
+                ms_per_step=decode_s / n_dec * 1e3, step_profile=step_prof, **dec)
+
+
+def deepseek_v2_phase(cfg=None, n: int = 4096, n_dec: int = 64, n_moe: int = 256,
+                      per_code=(64, 4, 1024), device=None) -> dict:
+    """deepseek-v2-236b with VQT at full width (d 5120, 128 heads with MLA
+    kv_lora 512, 160 routed experts top-6 + 2 shared of 1,536, vocab
+    102,400), depth cut 60 -> 3 (the dense first layer and 2 MoE layers),
+    weights drawn on the card from seed 0: ``forward`` on [1, n] random
+    tokens (MLA streamed past ``STREAM_THRESHOLD``, ``vq_assign`` at
+    N = n, dv = 8192 once a layer, no ``gated_attention``; finite logits and
+    aux loss), timed and profiled; layer 0's MLA through the streaming and
+    the dense path; MoE layer 1's dispatch against the loop form and
+    ``moe_per_code`` against the dense MoE (``moe_layer_checks``); n_dec
+    decode steps (``decode_check``); the peak memory above the phase's
+    start."""
+    from repro_torch.models import transformer as T
+
+    device = torch.device(device or DEVICE)
+    on_card = device.type == "cuda"
+    cfg = cfg or deepseek_cut("deepseek-v2-236b", 1, 2)
+    L = n_layers(cfg)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 1e9 if on_card else None
+    laps, lap = stopwatch()
+    params = T.init_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    sync(device)
+    lap("init")
+    param_bytes = tensor_bytes(params)  # every leaf f32
+    tokens = torch.randint(0, cfg.vocab, (1, n), device=device,
+                           generator=torch.Generator(device=device).manual_seed(1))
+    reset_launches()
+    with vq_census() as census, recorded_routes() as routes:
+        t0 = time.perf_counter()
+        logits, aux = T.forward(params, cfg, tokens)
+        sync(device)
+        forward_s = time.perf_counter() - t0
+    launches = launch_counters()[1]()
+    dv = cfg.n_heads * cfg.mla.v_dim // cfg.vqt.n_heads
+    want_vq = {f"{n}x{dv}": L}
+    if census != want_vq or launches["vq_assign"] != L or launches["gated_attention"]:
+        raise AssertionError(f"moe: {cfg.name} forward launched {launches} with VQ calls "
+                             f"{census} (expected {want_vq}, no gated_attention)")
+    if (logits.shape != (1, n, cfg.vocab) or not bool(torch.isfinite(logits).all())
+            or not bool(torch.isfinite(aux["aux_loss"]))):
+        raise AssertionError(f"moe: {cfg.name} forward logits or aux loss are not finite")
+    aux_loss = float(aux["aux_loss"])
+    experts_run = [int(ids.unique().numel()) for ids, _ in routes]
+    near_ties = route_ties(routes)
+    del logits, aux, routes
+    call = lambda: T.forward(params, cfg, tokens)  # noqa: E731
+    lap("first_forward")
+    ms = time_ms(call, warmup=0, iters=2)
+    lap("timed_forwards")
+    prof = profiled(call, ("vq_assign", "gated_attention"), top=6)
+    lap("profiled_forward")
+    stream = mla_stream_check(params, cfg, tokens, device)
+    lap("layer0_mla")
+    moe_res = moe_layer_checks(params, cfg, tokens, n_moe, per_code, device)
+    lap("moe_layer")
+    dec = decode_check(params, cfg, tokens, n_dec, f"moe: {cfg.name} decode", device)
+    lap("decode")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    e = cfg.moe
+    return dict(model=cfg.name, layers=L, reduced="depth 60 -> 3: the dense layer, 2 MoE layers",
+                d_model=cfg.d_model, heads=cfg.n_heads, mla=dataclasses.asdict(cfg.mla),
+                experts=[e.n_experts, e.top_k, e.n_shared, e.d_ff_expert], vocab=cfg.vocab,
+                params=param_bytes // 4, param_bytes=param_bytes, tokens=n,
+                init_params_s=laps["init"], first_forward_s=forward_s, ms_per_forward=ms,
+                tokens_per_s=n / (ms / 1e3), aux_loss=aux_loss,
+                launches={k: launches[k] for k in ("gated_attention", "vq_assign")},
+                vq_calls=census, experts_run_per_moe_layer=experts_run,
+                route_near_ties=near_ties, profile=dict(
+                    device_busy_ms=prof["device_busy_ms"],
+                    wall_ms_profiled=prof["wall_ms_profiled"],
+                    device_idle_share=prof["device_idle_share"],
+                    device_launches=prof["device_launches"], kernels=prof["kernels"],
+                    top_kernels=prof["top_kernels"]),
+                layer0_mla=stream, moe_layer=moe_res, decode=dec,
+                mem_gb=dict(start=start_gb, peak=peak,
+                            peak_above_start=None if peak is None else peak - start_gb),
+                step_seconds=laps)
+
+
+def deepseek_v3_phase(cfg=None, n: int = 1024, n_dec: int = 16, device=None) -> dict:
+    """deepseek-v3-671b with VQT at full width (d 7168, 128 heads, 256
+    routed experts top-8 + 1 shared of 2,048, vocab 129,280) and its
+    multi-token prediction head, depth cut 61 -> 2 (one dense, one MoE
+    layer), weights drawn on the card from seed 0: ``forward`` on [1, n]
+    random tokens (finite ``logits`` and ``mtp_logits``, both [1, n,
+    vocab]; ``vq_assign`` once a layer at dv = 8192), timed; n_dec decode
+    steps (``decode_check``); the peak memory above the phase's start."""
+    from repro_torch.models import transformer as T
+
+    device = torch.device(device or DEVICE)
+    on_card = device.type == "cuda"
+    cfg = cfg or deepseek_cut("deepseek-v3-671b", 1, 1)
+    L = n_layers(cfg)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 1e9 if on_card else None
+    laps, lap = stopwatch()
+    params = T.init_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    sync(device)
+    lap("init")
+    param_bytes = tensor_bytes(params)
+    tokens = torch.randint(0, cfg.vocab, (1, n), device=device,
+                           generator=torch.Generator(device=device).manual_seed(1))
+    reset_launches()
+    with vq_census() as census:
+        logits, aux = T.forward(params, cfg, tokens)
+    sync(device)
+    launches = launch_counters()[1]()
+    dv = cfg.n_heads * cfg.mla.v_dim // cfg.vqt.n_heads
+    want_vq = {f"{n}x{dv}": L}
+    mtp = aux.get("mtp_logits")
+    if (census != want_vq or launches["vq_assign"] != L or mtp is None
+            or logits.shape != (1, n, cfg.vocab) or mtp.shape != logits.shape
+            or not bool(torch.isfinite(logits).all()) or not bool(torch.isfinite(mtp).all())):
+        raise AssertionError(f"moe: {cfg.name} forward gave logits {tuple(logits.shape)}, mtp "
+                             f"{None if mtp is None else tuple(mtp.shape)}, VQ calls {census}, "
+                             f"launches {launches} (expected finite, {want_vq})")
+    del logits, aux, mtp
+    lap("first_forward")
+    ms = time_ms(lambda: T.forward(params, cfg, tokens), warmup=0, iters=2)
+    lap("timed_forwards")
+    dec = decode_check(params, cfg, tokens, n_dec, f"moe: {cfg.name} decode", device)
+    lap("decode")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(model=cfg.name, layers=L, reduced="depth 61 -> 2: one dense, one MoE layer",
+                mtp=cfg.mtp, d_model=cfg.d_model, experts=[cfg.moe.n_experts, cfg.moe.top_k,
+                                                           cfg.moe.n_shared, cfg.moe.d_ff_expert],
+                vocab=cfg.vocab, params=param_bytes // 4, param_bytes=param_bytes, tokens=n,
+                ms_per_forward=ms, tokens_per_s=n / (ms / 1e3), vq_calls=census,
+                launches={k: launches[k] for k in ("gated_attention", "vq_assign")},
+                decode=dec, mem_gb=dict(start=start_gb, peak=peak,
+                                        peak_above_start=None if peak is None
+                                        else peak - start_gb),
+                step_seconds=laps)
+
+
 SWEEPS = ("delta_gate", "vq_assign", "patch", "gated_attention")
 
 
@@ -2762,6 +3182,16 @@ def main() -> int:
     rec = dict(rwkv6=rwkv6_phase(), hymba=hymba_phase(), hymba_ring=hymba_ring_phase())
     emit("recurrent", seconds=time.perf_counter() - t0, nvidia_smi=smi, **rec)
 
+    # ---- 18. moe: MLA, MoE and MTP at deepseek-v2 and -v3 width
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = dict(deepseek_v2=deepseek_v2_phase())
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe["deepseek_v3"] = deepseek_v3_phase()
+    emit("moe", seconds=time.perf_counter() - t0, nvidia_smi=smi, **moe)
+
     # ---- summary
     c72 = next(f for f in fused if f["C"] == 72 and f["mask"] == "random")
     r_top = max(gate_rows, key=gate_rows.get)  # the most served r
@@ -2816,10 +3246,12 @@ def main() -> int:
         bound_tc_3xtf32_ms=ga1024["bound_tc_3xtf32_ms"], head_dims=wide,
         hymba=shape_row(ga_hymba, rec["hymba"]["launches"]["gated_attention"]))
     # the families' forwards: one phi4 forward (dv 1536), one gemma3 pattern
-    # forward (dv 2048), one hymba forward (dv 800)
+    # forward (dv 2048), one hymba forward (dv 800), one cut deepseek-v2
+    # forward (dv 8192)
     for dv, N, launches in ((1536, 4096, fam["phi4"]["launches"]["vq_assign"]),
                             (2048, 3072, fam["gemma3"]["launches"]["vq_assign"]),
-                            (800, 4096, rec["hymba"]["launches"]["vq_assign"])):
+                            (800, 4096, rec["hymba"]["launches"]["vq_assign"]),
+                            (8192, 4096, moe["deepseek_v2"]["launches"]["vq_assign"])):
         row = next(v for v in vqs if v["dv"] == dv and v["N"] == N)
         next(k for k in kernels if k["name"] == "vq_assign")[f"dv{dv}"] = dict(
             N=N, launches=launches,

@@ -1,8 +1,8 @@
-"""Architecture configuration schema — the subset of ``repro/configs/base.py``
-the dense-attention and recurrent families need (``ArchConfig``,
-``LayerCfg``, ``SSMCfg``, ``RWKVCfg``, ``uniform_stages``,
-``reduce_for_smoke``). The MoE and MLA sub-configs and ``mtp`` come with
-the MLA/MoE families (ROADMAP Queue A item 9c).
+"""Architecture configuration schema — the port of ``repro/configs/base.py``
+(``ArchConfig``, ``LayerCfg``, ``MoECfg``, ``MLACfg``, ``SSMCfg``,
+``RWKVCfg``, ``uniform_stages``, ``reduce_for_smoke``): the dense-attention,
+recurrent and MLA / MoE families, DeepSeek-V3's multi-token prediction
+(``mtp``) included.
 
 The reference module imports ``core/vq`` and through it jax, so the port
 keeps its own copy. Field names and defaults match the reference so one
@@ -17,6 +17,28 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 from repro_torch.core.vq import VQConfig
+
+
+@dataclass(frozen=True)
+class MoECfg:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0
+    # capacity factor for fixed-size expert buffers (tokens dropped beyond
+    # it); read by the reference's expert-parallel path only
+    capacity_factor: float = 1.25
+    router_noise: float = 0.0
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class MLACfg:
+    q_lora: int
+    kv_lora: int
+    rope_dim: int
+    nope_dim: int
+    v_dim: int
 
 
 @dataclass(frozen=True)
@@ -36,15 +58,15 @@ class RWKVCfg:
 
 @dataclass(frozen=True)
 class LayerCfg:
-    mixer: str  # 'gqa' | 'hymba' | 'rwkv6'
-    ffn: str  # 'swiglu' | 'geglu' | 'gelu' | 'relu' | 'relu2' | 'rwkv_cm'
+    mixer: str  # 'gqa' | 'mla' | 'hymba' | 'rwkv6'
+    ffn: str  # 'swiglu' | 'geglu' | 'gelu' | 'relu' | 'relu2' | 'moe' | 'rwkv_cm'
     window: Optional[int] = None  # sliding-window size; None = global
 
 
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str
+    family: str  # dense | moe | vlm | audio | hybrid | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -60,6 +82,8 @@ class ArchConfig:
     pos_pool: int = 0  # for pos == 'sampled'
     attn_softmax: bool = True  # False -> element-wise σ (VQT, paper eq. 1)
     attn_bias: bool = False
+    moe: Optional[MoECfg] = None
+    mla: Optional[MLACfg] = None
     ssm: Optional[SSMCfg] = None
     rwkv: Optional[RWKVCfg] = None
     vqt: Optional[VQConfig] = None
@@ -67,6 +91,7 @@ class ArchConfig:
     input_mode: str = "tokens"
     n_codebooks: int = 1  # musicgen: 4 parallel EnCodec streams
     n_patches: int = 256  # vlm: stub patch-embedding count
+    mtp: bool = False  # DeepSeek-V3 multi-token-prediction head
     tie_embeddings: bool = False
     # citation for the config values
     source: str = ""
@@ -97,8 +122,8 @@ def uniform_stages(layer: LayerCfg, n_layers: int):
 def reduce_for_smoke(cfg: ArchConfig, *, d_model: int = 256, n_layers: int = 2,
                      n_heads: int = 4, n_kv_heads: int = 2, d_ff: int = 512,
                      vocab: int = 512, max_seq: int = 128) -> ArchConfig:
-    """Produce a reduced same-family variant (<=2 layers, d<=512), exactly
-    as the reference does for the dense and recurrent families."""
+    """Produce a reduced same-family variant (<=2 layers, d<=512, <=4
+    experts), exactly as the reference does."""
     changes = dict(
         name=cfg.name + "-smoke",
         d_model=d_model,
@@ -110,6 +135,11 @@ def reduce_for_smoke(cfg: ArchConfig, *, d_model: int = 256, n_layers: int = 2,
         max_seq=max_seq,
         head_dim=None,
     )
+    if cfg.moe is not None:
+        changes["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=2, d_ff_expert=128, n_shared=min(cfg.moe.n_shared, 1))
+    if cfg.mla is not None:
+        changes["mla"] = MLACfg(q_lora=64, kv_lora=32, rope_dim=16, nope_dim=48, v_dim=64)
     if cfg.ssm is not None:
         changes["ssm"] = SSMCfg(d_state=16, d_conv=4, expand=2, n_ssm_heads=2)
     if cfg.rwkv is not None:

@@ -1,15 +1,14 @@
 """Serve small models of several architectures with batched greedy decode:
 a KV cache (stablelm), ring-buffer sliding-window caches (gemma3's local
-layers), Mamba SSM and conv states beside a KV cache (hymba), RWKV states
-(rwkv6) and multi-codebook audio tokens (musicgen).
+layers), MLA latent caches and routed experts (deepseek-v2), Mamba SSM and
+conv states beside a KV cache (hymba), RWKV states (rwkv6) and
+multi-codebook audio tokens (musicgen).
 
     PYTHONPATH=src python -m repro_torch.examples.multiarch_decode [--device cpu] [--vqt]
 
 The port's counterpart of ``examples/multiarch_decode.py``, at the reduced
-configs with the port's seeded weights. The reference's MLA architecture is
-not ported yet and prints a line naming its ROADMAP item. Each decode is
-checked against a forward over the same tokens (the last step's logits
-within 2e-3).
+configs with the port's seeded weights. Each decode is checked against a
+forward over the same tokens (the last step's logits within 2e-3).
 """
 from __future__ import annotations
 
@@ -37,11 +36,7 @@ def main(argv=None) -> None:
     dev = torch.device(args.device)
 
     for arch in ARCHS:
-        try:
-            cfg = get_config(arch, smoke=True, vqt=args.vqt)
-        except NotImplementedError as e:
-            print(f"{arch:20s} skipped: {e}")
-            continue
+        cfg = get_config(arch, smoke=True, vqt=args.vqt)
         params = T.init_params(cfg, generator=torch.Generator().manual_seed(0), device=dev)
         shape = (B, PROMPT, cfg.n_codebooks) if cfg.n_codebooks > 1 else (B, PROMPT)
         prompt = torch.randint(0, cfg.vocab, shape,

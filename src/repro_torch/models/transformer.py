@@ -1,9 +1,10 @@
 """The decoder stack — the port of ``repro/models/transformer.py`` for GQA
 attention stacks (the paper's VQ-OPT and the dense-attention families:
 RMSNorm or LayerNorm, RoPE or absolute positions, sliding windows, gated
-or biased FFNs, vision prefixes, multi-codebook audio tokens) and the
+or biased FFNs, vision prefixes, multi-codebook audio tokens), the
 recurrent families (Hymba's hybrid attention + SSM mixer, RWKV6's time-mix
-and channel-mix).
+and channel-mix) and the MLA / MoE families (DeepSeek's latent attention,
+routed + shared experts, V3's multi-token prediction head).
 
 A model is a sequence of *stages* ``(pattern, repeat)`` (see
 ``configs.base``). Parameters of a stage are stacked along a leading
@@ -15,16 +16,17 @@ Entry points:
     from a ``torch.Generator``, so they differ from ``jax.random``'s);
     ``params_from_numpy`` carries the reference's own weights across;
   * ``forward``      — inference over [b, n] tokens ([b, n, cb] audio
-    codes; vision patch embeddings prefixed for VLMs): σ attention through
-    the ``gated_attention`` kernel, VQ through ``vq_assign``;
+    codes; vision patch embeddings prefixed for VLMs): σ GQA attention
+    through the ``gated_attention`` kernel, VQ through ``vq_assign``; with
+    ``cfg.mtp`` also DeepSeek-V3's depth-1 ``mtp_logits``;
   * ``prefill_step`` / ``decode_step`` — m tokens / one token per sequence
     against per-layer caches (``init_caches``: full KV caches, ring buffers
-    for windowed layers, SSM / conv / RWKV states; ``caches_from_kv``,
-    ``set_cache_length``). ``prefill_step`` and ``caches_from_kv`` take
-    non-windowed GQA stacks only, as in the reference.
+    for windowed layers, MLA latents, SSM / conv / RWKV states;
+    ``caches_from_kv``, ``set_cache_length``). ``prefill_step`` and
+    ``caches_from_kv`` take non-windowed GQA stacks only, as in the
+    reference.
 
-Training, multi-token prediction and the MLA and MoE mixers come with
-later slices (ROADMAP Queue A items 9c and 10).
+Training comes with a later slice (ROADMAP Queue A item 10).
 
 Parameter layout::
 
@@ -36,14 +38,19 @@ Parameter layout::
         norm1/norm2.{scale[, bias]},
         ffn.{w_gate, w_up, w_down} (swiglu, geglu) or
             ffn.{w_up, b_up, w_down, b_down} (gelu, relu, relu2),
+            ffn.{router, w_gate, w_up, w_down[, shared]} (moe, ``models.moe``),
             ffn.{mu, w_k, w_v, w_r} (rwkv_cm, ``models.rwkv6``),
         mixer.{wq, wk, wv, wo[, bq, bk, bv, bo]}, mixer.vq.codebook [hq, Q, d_vq]
-            (gqa; hymba and rwkv6: ``models.hymba``, ``models.rwkv6``)
+            (gqa; mla, hymba and rwkv6: ``models.mla``, ``models.hymba``,
+            ``models.rwkv6``)
     lm_head [d, vocab * cb] (untied configurations only)
+    mtp.{norm_h, norm_e, norm_f}.scale [d], mtp.proj [2d, d],
+        mtp.ffn.{w_gate, w_up, w_down} (d_ff wide; ``cfg.mtp`` only)
 
 Caches mirror the stages: a list over stages of tuples over the pattern of
 ``{"mix": c}``, every leaf of c stacked over the stage's repeat axis: gqa
-``{"k", "v": [b, S, Hkv, dh], "len": [b] int32}``; hymba ``{"attn": that,
+``{"k", "v": [b, S, Hkv, dh], "len": [b] int32}``; mla ``{"ckv": [b, S,
+kv_lora], "krope": [b, S, rope], "len"}``; hymba ``{"attn": that,
 "ssm_state": [b, H, d_state, dh], "conv_state": [b, d_conv - 1, H·dh]}``;
 rwkv6 ``{"tm": {"S": [b, H, dh, dh], "x_last": [b, d]}, "cm_x_last": [b, d]}``.
 """
@@ -65,19 +72,14 @@ from repro_torch.models.attention import (
 from repro_torch.models.embedding import embed_tokens, merge_vision
 from repro_torch.models.ffn import ffn_apply
 from repro_torch.models.hymba import hymba_apply, hymba_cache_init, hymba_decode, hymba_init
+from repro_torch.models.mla import mla_apply, mla_cache_init, mla_decode, mla_init
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.norms import apply_norm, norm_init
 
-# mixers and FFNs of later slices -> the ROADMAP Queue A item that ports them
-_LATER = {"mla": "9c (MLA and MoE)", "moe": "9c (MLA and MoE)"}
-_MIXERS = ("gqa", "hymba", "rwkv6")
+_MIXERS = ("gqa", "mla", "hymba", "rwkv6")
 
 
 def _check_mixer(layer: LayerCfg) -> None:
-    for kind in (layer.mixer, layer.ffn):
-        if kind in _LATER:
-            raise NotImplementedError(
-                f"{kind} layers are not ported yet: they come with ROADMAP Queue A "
-                f"item {_LATER[kind]}")
     if layer.mixer not in _MIXERS:
         raise ValueError(f"unknown mixer {layer.mixer!r}")
 
@@ -117,14 +119,20 @@ def _layer_init(gen: torch.Generator, cfg: ArchConfig, layer: LayerCfg,
                 repeat: int) -> dict:
     _check_mixer(layer)
     d, r = cfg.d_model, (repeat,)
-    if layer.mixer == "hymba":
+    if layer.mixer == "mla":
+        mixer = mla_init(gen, cfg, layer, r)
+    elif layer.mixer == "hymba":
         mixer = hymba_init(gen, cfg, layer, r)
     elif layer.mixer == "rwkv6":
         mixer = rwkv_mod.rwkv_init(gen, cfg, layer, r)
     else:
         mixer = _attn_init(gen, cfg, r)
-    ffn = (rwkv_mod.cm_init(gen, cfg, r) if layer.ffn == "rwkv_cm"
-           else _ffn_init(gen, layer.ffn, d, cfg.d_ff, r))
+    if layer.ffn == "moe":
+        ffn = moe_init(gen, cfg, r)
+    elif layer.ffn == "rwkv_cm":
+        ffn = rwkv_mod.cm_init(gen, cfg, r)
+    else:
+        ffn = _ffn_init(gen, layer.ffn, d, cfg.d_ff, r)
     return {"norm1": norm_init(cfg.norm, d, r), "norm2": norm_init(cfg.norm, d, r),
             "mixer": mixer, "ffn": ffn}
 
@@ -165,6 +173,11 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     params["final_norm"] = norm_init(cfg.norm, d)
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(generator, (d, cfg.vocab * max(cb, 1)), d ** -0.5)
+    if cfg.mtp:
+        params["mtp"] = {"norm_h": norm_init(cfg.norm, d), "norm_e": norm_init(cfg.norm, d),
+                         "proj": normal(generator, (2 * d, d), (2 * d) ** -0.5),
+                         "ffn": _ffn_init(generator, "swiglu", d, cfg.d_ff, ()),
+                         "norm_f": norm_init(cfg.norm, d)}
     return _to(params, dev)
 
 
@@ -208,12 +221,24 @@ def _stack(trees: list):
 # ---------------------------------------------------------------- forward
 
 
+def _ffn_fwd(lp: dict, cfg: ArchConfig, layer: LayerCfg,
+             h2: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A stateless FFN (dense or MoE) on the normed h2. Returns (y, the MoE
+    aux loss or None)."""
+    if layer.ffn == "moe":
+        return moe_apply(lp["ffn"], cfg, h2)
+    return ffn_apply(layer.ffn, lp["ffn"], h2), None
+
+
 def _layer_fwd(lp: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
                positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pre-norm block: x + mixer(n1(x)); then x + ffn(n2(x))."""
+    """Pre-norm block: x + mixer(n1(x)); then x + ffn(n2(x)). Returns (x,
+    the layer's aux loss: VQ's, 0 at inference, plus the MoE router's)."""
     _check_mixer(layer)
     h = apply_norm(cfg.norm, lp["norm1"], x)
-    if layer.mixer == "hymba":
+    if layer.mixer == "mla":
+        mix, aux = mla_apply(lp["mixer"], cfg, layer, h, positions)
+    elif layer.mixer == "hymba":
         mix, aux = hymba_apply(lp["mixer"], cfg, layer, h, positions)
     elif layer.mixer == "rwkv6":
         mix, _, _ = rwkv_mod.rwkv_time_mix(lp["mixer"], cfg, h)
@@ -225,7 +250,9 @@ def _layer_fwd(lp: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
     if layer.ffn == "rwkv_cm":
         y, _ = rwkv_mod.rwkv_channel_mix(lp["ffn"], h2)
     else:
-        y = ffn_apply(layer.ffn, lp["ffn"], h2)
+        y, moe_aux = _ffn_fwd(lp, cfg, layer, h2)
+        if moe_aux is not None:
+            aux = aux + moe_aux
     return x + y, aux
 
 
@@ -252,7 +279,9 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     [b, n_patches, d] are projected and prefixed, at positions
     0..n_patches-1 (the text's shifted after them); logits cover the whole
     sequence. Returns (logits [b, n, vocab] or [b, n, cb, vocab],
-    {"aux_loss", "hidden"})."""
+    {"aux_loss", "hidden"} and, with ``cfg.mtp``, "mtp_logits": the depth-1
+    multi-token prediction from h_t and the embedding of token t + 1, the
+    last row's next token wrapping to the first as ``jnp.roll`` does)."""
     if train:
         raise NotImplementedError(
             "training comes with the port's training slice (ROADMAP Queue A item 10)")
@@ -275,7 +304,17 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             for pi, layer in enumerate(pattern):
                 x, a = _layer_fwd(spr[pi], cfg, layer, x, positions)
                 aux = aux + a
-    return _head(params, cfg, x), {"aux_loss": aux, "hidden": x}
+    out_aux = {"aux_loss": aux, "hidden": x}
+    if cfg.mtp and "mtp" in params:
+        m = params["mtp"]
+        emb_next = torch.roll(
+            embed_tokens(params["embed"], cfg, tokens, positions[:, -n:]), -1, dims=1)
+        hcat = torch.cat([apply_norm(cfg.norm, m["norm_h"], x[:, -n:]),
+                          apply_norm(cfg.norm, m["norm_e"], emb_next.to(x.dtype))], dim=-1)
+        h_mtp = hcat @ m["proj"]
+        h_mtp = h_mtp + ffn_apply("swiglu", m["ffn"], apply_norm(cfg.norm, m["norm_f"], h_mtp))
+        out_aux["mtp_logits"] = _head(params, cfg, h_mtp)
+    return _head(params, cfg, x), out_aux
 
 
 # ---------------------------------------------------------------- caches
@@ -284,6 +323,8 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 def _layer_cache_init(cfg: ArchConfig, layer: LayerCfg, batch: int, seq_len: int,
                       dtype, device) -> dict:
     _check_mixer(layer)
+    if layer.mixer == "mla":
+        return mla_cache_init(cfg, layer, batch, seq_len, dtype, device)
     if layer.mixer == "hymba":
         return hymba_cache_init(cfg, layer, batch, seq_len, dtype, device)
     if layer.mixer == "rwkv6":
@@ -304,7 +345,8 @@ def init_caches(cfg: ArchConfig, batch: int, seq_len: int, dtype=torch.float32,
 
 def chunkable(cfg: ArchConfig) -> bool:
     """Whether ``prefill_step`` supports this config: plain-token GQA stacks
-    with no sliding windows (a ring cache takes one token a step)."""
+    with no sliding windows (a ring cache takes one token a step). MLA,
+    hymba and rwkv6 decode token by token, as in the reference."""
     return (cfg.input_mode == "tokens" and cfg.n_codebooks == 1
             and all(layer.mixer == "gqa" and layer.window is None
                     and layer.ffn != "rwkv_cm" for layer in cfg.layer_list()))
@@ -318,7 +360,7 @@ def _layer_prefill(lp: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
     mix, mc = attn_prefill(lp["mixer"], cfg, layer, h, cache["mix"], positions)
     x = x + mix
     h2 = apply_norm(cfg.norm, lp["norm2"], x)
-    return x + ffn_apply(layer.ffn, lp["ffn"], h2), mc
+    return x + _ffn_fwd(lp, cfg, layer, h2)[0], mc
 
 
 def _layer_decode(lp: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
@@ -327,7 +369,9 @@ def _layer_decode(lp: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
     carries its channel-mix token shift (``cm_x_last``) in the mixer's
     cache, as the reference. Returns (x, the layer's new cache)."""
     h = apply_norm(cfg.norm, lp["norm1"], x)
-    if layer.mixer == "hymba":
+    if layer.mixer == "mla":
+        mix, mc = mla_decode(lp["mixer"], cfg, layer, h, cache["mix"], positions)
+    elif layer.mixer == "hymba":
         mix, mc = hymba_decode(lp["mixer"], cfg, layer, h, cache["mix"], positions)
     elif layer.mixer == "rwkv6":
         mix, tm = rwkv_mod.rwkv_time_mix_step(lp["mixer"], cfg, h, cache["mix"]["tm"])
@@ -339,7 +383,7 @@ def _layer_decode(lp: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
     if layer.ffn == "rwkv_cm":
         y, mc["cm_x_last"] = rwkv_mod.rwkv_channel_mix(lp["ffn"], h2, cache["mix"]["cm_x_last"])
     else:
-        y = ffn_apply(layer.ffn, lp["ffn"], h2)
+        y = _ffn_fwd(lp, cfg, layer, h2)[0]
     return x + y, mc
 
 

@@ -270,3 +270,122 @@ def test_recurrent_phase_gates_pass_on_the_cpu(monkeypatch):
     assert ring["cache_slots"] == [40, 16] and ring["windows"] == [None, 16]
     assert ring["forward_launches"] == {"gated_attention": 1, "vq_assign": 2}
     assert ring["decode"]["max_logits_diff"] < 2e-3
+
+
+def _stub_card(monkeypatch):
+    """Count the wrappers' CPU calls as launches, lower STREAM_THRESHOLD to
+    64 and stub the timers, as the families' rehearsals do."""
+    from repro_torch.core import vq as vq_mod
+    from repro_torch.kernels import gated_attention as gak
+    from repro_torch.kernels import vq_assign as vqk
+    from repro_torch.models import attention
+
+    def counted(mod, name, fn):
+        def call(*a):
+            mod.LAUNCHES[name] += 1
+            return fn(*a)
+        return call
+
+    monkeypatch.setattr(attention, "gated_attention",
+                        counted(gak, "gated_attention", attention.gated_attention))
+    monkeypatch.setattr(vq_mod, "vq_assign", counted(vqk, "vq_assign", vq_mod.vq_assign))
+    monkeypatch.setattr(attention, "STREAM_THRESHOLD", 64)
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "time_ms", lambda fn, warmup=3, iters=25: (fn(), 1.0)[1])
+    monkeypatch.setattr(cs, "profiled", lambda fn, names, top: (fn(), dict(
+        device_busy_ms=1.0, wall_ms_profiled=1.0, device_idle_share=0.0, device_launches=1,
+        kernels={}, top_kernels=[]))[1])
+
+
+def test_moe_phase_gates_pass_on_the_cpu(monkeypatch):
+    """Phase 18's gates at smoke size on the CPU: deepseek-v2 with VQT (a
+    96-token forward whose MLA streams past the lowered threshold, one
+    ``vq_assign`` a layer at dv = 128, no ``gated_attention``; layer 0's
+    streaming MLA against the dense scores; the routed MoE against the
+    loop form on 32 tokens; ``moe_per_code`` on 8 rows indexed by [2, 16]
+    against the dense MoE; 8 decode steps against the forward), then
+    deepseek-v3 with its MTP head (both logits finite and [1, n, vocab])."""
+    from repro_torch.configs import get_config
+
+    _stub_card(monkeypatch)
+    v2 = cs.deepseek_v2_phase(cfg=get_config("deepseek-v2-236b", smoke=True, vqt=True),
+                              n=96, n_dec=8, n_moe=32, per_code=(8, 2, 16))
+    assert v2["launches"] == {"gated_attention": 0, "vq_assign": 2}
+    assert v2["vq_calls"] == {"96x128": 2}
+    assert len(v2["experts_run_per_moe_layer"]) == 1
+    assert v2["layer0_mla"]["streaming_vs_dense_max_abs_err"] < 2e-5
+    assert v2["moe_layer"]["layer"] == 1
+    assert v2["moe_layer"]["routed_vs_loop_max_abs_err"] < 2e-5
+    assert v2["moe_layer"]["per_code"]["kept_rows"] == 8
+    assert v2["decode"]["max_logits_diff"] < 2e-3 and len(
+        v2["decode"]["max_logits_diff_by_step"]) == 8
+    v3 = cs.deepseek_v3_phase(cfg=get_config("deepseek-v3-671b", smoke=True, vqt=True),
+                              n=32, n_dec=6)
+    assert v3["mtp"] and v3["vq_calls"] == {"32x128": 2}
+    assert v3["decode"]["max_logits_diff"] < 2e-3
+
+
+def test_moe_loop_form_is_the_reference_loop():
+    """``moe_loop_form`` (every expert on every token, gated) equals the
+    reference's ``moe_apply_dense`` on the same weights and tokens, and the
+    port's routed dispatch equals it within 2e-5."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from _torch_parity import params_to_numpy
+    from repro.configs import get_config as ref_get_config
+    from repro.models import moe as ref_moe
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import params_from_numpy
+
+    cfg = get_config("deepseek-v2-236b", smoke=True)
+    pj = ref_moe.moe_init(jax.random.PRNGKey(3), ref_get_config("deepseek-v2-236b", smoke=True))
+    pt = params_from_numpy(params_to_numpy(pj), device="cpu")
+    x = np.random.default_rng(3).standard_normal((2, 12, cfg.d_model)).astype(np.float32)
+    loop = cs.moe_loop_form(pt, cfg, torch.tensor(x))
+    want, _ = ref_moe.moe_apply_dense(pj, ref_get_config("deepseek-v2-236b", smoke=True),
+                                      jnp.asarray(x))
+    np.testing.assert_allclose(loop.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
+    routed, _ = moe.moe_apply_dense(pt, cfg, torch.tensor(x))
+    np.testing.assert_allclose(routed.numpy(), loop.numpy(), atol=2e-5, rtol=2e-5)
+
+
+def test_route_flips_exempt_near_ties_and_raise_otherwise():
+    """A token whose experts differ between two routes is returned when its
+    k-th and (k+1)-th probabilities lie within ROUTE_TIE in either route,
+    and raises otherwise; decode routes (one call a step) and per-code
+    routes (token t is row index[t]) line up with the forward's tokens."""
+    ids = torch.tensor([[0, 1], [1, 2], [0, 3]])
+    gap = torch.tensor([0.1, 5e-6, 0.2])
+    fwd = [(ids, gap)]
+    steps = [(ids[i:i + 1].clone(), gap[i:i + 1]) for i in range(3)]
+    assert cs.route_flips(fwd, steps, 1, "t").tolist() == [False, False, False]
+    steps[1] = (torch.tensor([[1, 3]]), gap[1:2])  # at the near tie
+    assert cs.route_flips(fwd, steps, 1, "t").tolist() == [False, True, False]
+    assert cs.route_ties(fwd) == 1
+    steps[2] = (torch.tensor([[0, 2]]), gap[2:3])  # away from a near tie
+    with pytest.raises(AssertionError, match="away from a near tie"):
+        cs.route_flips(fwd, steps, 1, "t")
+    rows = [(torch.tensor([[0, 1], [1, 3]]), torch.tensor([0.1, 5e-6]))]
+    index = torch.tensor([0, 1, 0])
+    fwd2 = [(ids[[0, 1, 0]], gap[[0, 1, 0]])]
+    assert cs.route_flips(fwd2, rows, 1, "t", index=index).tolist() == [False, True, False]
+
+
+def test_decode_gate_raises_on_a_wrong_step(monkeypatch):
+    """``decode_check`` fails when the decode's logits leave the forward's
+    by more than 2e-3 in a row without a flip."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    _stub_card(monkeypatch)
+    cfg = get_config("deepseek-v2-236b", smoke=True)
+    params = T.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.randint(0, cfg.vocab, (1, 6), generator=torch.Generator().manual_seed(1))
+    ok = cs.decode_check(params, cfg, toks, 6, "t", "cpu")
+    assert ok["max_logits_diff"] < 2e-3 and ok["route_flip_rows"] == 0
+    step = T.decode_step
+    monkeypatch.setattr(T, "decode_step", lambda *a: (lambda r: (r[0] + 0.01, r[1]))(step(*a)))
+    with pytest.raises(AssertionError, match="logits differ"):
+        cs.decode_check(params, cfg, toks, 6, "t", "cpu")

@@ -146,15 +146,21 @@ def test_worker_specs_carry_each_replica_its_device(device):
 
 
 def test_get_config_serves_only_the_ported_model():
-    """The ported architectures resolve (VQ-OPT and, since the dense
-    families, gemma3-12b); an architecture of a later slice raises naming
-    its ROADMAP item."""
+    """The ported architectures resolve (VQ-OPT, since the dense families
+    gemma3-12b, and since the MLA / MoE families deepseek-v2 with the
+    reference's values); a name no package knows raises."""
+    from repro.configs import get_config as ref_get_config
+
     cfg = get_config("vq-opt-125m", smoke=True)
     assert cfg.vqt is not None and get_config("vq-opt-125m").d_model == 768
     gemma = get_config("gemma3-12b")
     assert gemma.resolved_head_dim == 256 and gemma.n_layers == 48
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        get_config("deepseek-v2-236b")
+    ds, ref = get_config("deepseek-v2-236b"), ref_get_config("deepseek-v2-236b")
+    assert (ds.d_model, ds.n_heads, ds.n_layers, ds.vocab) == (5120, 128, 60, 102400)
+    assert (ds.moe.n_experts, ds.moe.top_k, ds.moe.n_shared) == (
+        ref.moe.n_experts, ref.moe.top_k, ref.moe.n_shared) == (160, 6, 2)
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("deepseek-v9")
 
 
 # -------------------------------------------------------- process fixtures

@@ -114,18 +114,26 @@ def test_forward_last_row_matches_engine_full_forward(setup):
 
 
 def test_unported_modes_raise(setup):
-    """Training and the MLA mixer still raise, naming the ROADMAP item that
-    ports them; the recurrent mixers (hymba, rwkv6 with its channel-mix),
-    vision inputs and windowed (ring) caches now work."""
+    """Training still raises, naming the ROADMAP item that ports it; the MLA
+    mixer (here on VQ-OPT's GELU FFN, with deepseek-v2's smoke MLA dims), the
+    recurrent mixers (hymba, rwkv6 with its channel-mix), vision inputs and
+    windowed (ring) caches now work; an unknown mixer raises."""
     _, _, _, tp = setup
     toks = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="item 10"):
         PT.forward(tp, port_smoke(), toks, train=True)
-    other = dataclasses.replace(port_smoke(), stages=uniform_stages(LayerCfg("mla", "gelu"), 2))
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        PT.init_caches(other, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        PT.init_params(other, generator=torch.Generator().manual_seed(0), device="cpu")
+    other = dataclasses.replace(port_smoke(), mla=get_config("deepseek-v2-236b", smoke=True).mla,
+                                stages=uniform_stages(LayerCfg("mla", "gelu"), 2))
+    caches = PT.init_caches(other, 1, 4, device="cpu")
+    assert set(caches[0][0]["mix"]) == {"ckv", "krope", "len"}
+    assert caches[0][0]["mix"]["ckv"].shape == (2, 1, 4, other.mla.kv_lora)
+    params = PT.init_params(other, generator=torch.Generator().manual_seed(0), device="cpu")
+    assert set(params["stages"][0][0]["mixer"]) >= {"w_dkv", "w_uk", "w_uv", "vq"}
+    logits, _ = PT.forward(params, other, toks, torch.arange(4)[None] * 3)
+    assert logits.shape == (1, 4, other.vocab) and bool(torch.isfinite(logits).all())
+    unknown = dataclasses.replace(port_smoke(), stages=uniform_stages(LayerCfg("ssm", "gelu"), 2))
+    with pytest.raises(ValueError, match="unknown mixer"):
+        PT.init_caches(unknown, 1, 4, device="cpu")
     for arch, mixer, ffn in (("hymba-1.5b", "hymba", "swiglu"), ("rwkv6-7b", "rwkv6", "rwkv_cm")):
         cfg = get_config(arch, smoke=True)
         assert {(layer.mixer, layer.ffn) for layer in cfg.layer_list()} == {(mixer, ffn)}
