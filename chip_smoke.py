@@ -26,12 +26,19 @@ and exits non-zero):
                 and deepseek's dv=8192 among them: idx equal away from
                 near-ties, x_q bitwise the codebook row; the VQ kernel's own
                 device time by name beside the wrapper's),
-                ``gated_attention`` (BH=48, dh=64, n in {1024, 1000, 37};
+                ``gated_attention`` (BH=48, dh=64, n in {1024, 1000, 37},
+                and the train step's BH=96 at n=1024;
                 dh=128 at phi4-mini's BH=24, n=4096, dh=256 at gemma3's
                 BH=16, n=3072 and dh=64 at hymba's BH=25, n=4096, each
                 also at n=1000; within 1e-5; its
                 bound at its route's peak, 3xTF32 on the tensor cores,
-                beside the FP32 cores') and ``incr_patch`` (B=4, n=1024, H=12, C in
+                beside the FP32 cores'), the ``gated_attention`` backward
+                (``BWD_ATTENTION``: BH=96 and 48 at n=1024, BH=48 at n in
+                {1000, 37, 1}, dh=64; dq, dk and dv each within 1e-5 of
+                the plain version's max |.|; its bound, 5 products a
+                causal pair, at the 3xTF32 route's peak beside the FP32
+                cores', on which it runs)
+                and ``incr_patch`` (B=4, n=1024, H=12, C in
                 {8, 72, 264}, and 1x1024x1032, the most served step; within
                 1e-4, all-masked rows exactly 0).
 4. serve      — full-width VQ-OPT-125M (random weights from seed 0) behind
@@ -208,6 +215,26 @@ and exits non-zero):
                 cut 61 -> 2 (one dense, one MoE layer of 256 experts): a
                 [1, 1024] forward (finite ``logits`` and ``mtp_logits``,
                 2 ``vq_assign``), 16 decode steps checked the same way.
+19. train     — training (``train_phase``). One train step of VQ-OPT at
+                full width, depth cut to 2 layers, on [2, 256] on the card
+                against the same step on the CPU through the plain
+                versions (``card_vs_cpu_step``: the same weights, batch and
+                Gumbel noise; VQ codes equal but where the top two Gumbel
+                logits lie within 1e-5, counted; a draw in which one flipped
+                is drawn again, up to 3 draws; then the loss within 1e-5
+                and every gradient leaf within 1e-4 of its max). VQ-OPT-125M at full width and depth (281 M
+                parameters, seed 0) through ``make_train_step`` with remat:
+                8 steps at [8, 1024] of ``SyntheticCorpus(seed=0)`` with
+                sampled positions, lr 6e-4, warmup 1; every loss finite,
+                the last below the first, 24 ``gated_attention`` launches
+                and 12 of each backward kernel a step; ms a step and
+                tokens/s over steps 2-8, peak memory, one more step
+                profiled. 3 ``make_distill_step`` steps with a full-width
+                OPT-125M teacher (kl, lm finite). ``save_pytree`` ->
+                ``restore_pytree`` of the trained weights (bitwise), and a
+                ``BatchServer`` serving a 256-token document from them
+                gives logits bitwise equal to one serving the weights in
+                memory.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line
 (``delta_gate`` at the threshold phase's most served r), and the last line
@@ -220,7 +247,8 @@ kernels line come from the path that runs each kernel (serve for
 ``dv2048`` from the families phase's forwards, ``gated_attention``'s
 ``hymba`` and ``vq_assign``'s ``dv800`` from the recurrent phase's hymba
 forward, ``vq_assign``'s ``dv8192`` from the moe phase's deepseek-v2
-forward),
+forward, ``gated_attention_bwd`` (both backward kernels) from the train
+phase's 8 full-size steps),
 with the counters set to 0 just before that path; launches made to compare
 or time a kernel do not count. Exits non-zero without a GPU
 and outside a checkout of the repo.
@@ -680,6 +708,58 @@ def sweep_gated_attention(mod, gen) -> None:
     for BH, nq, nk, dh in SWEEP_ATTENTION:
         emit("sweep", kernel="gated_attention",
              **check_gated_attention(mod, gen, nq, nk, BH=BH, dh=dh))
+
+
+def attention_bwd_work(BH: int, n: int, dh: int = 64) -> tuple[int, int]:
+    """The compulsory bytes (q, k, v and dO read once, dq, dk and dv
+    written once) and FP32 operations of the ``gated_attention`` backward
+    at nq = nk = n: the 5 products the gradient needs (S, dW, dV, dK, dQ),
+    2 dh operations each a causal (query, key) pair; GELUs not counted.
+    The kernels recompute S and dW in both of their passes: that work is
+    the design's, not the function's, and stays out of the bound."""
+    pairs = n * (n + 1) // 2
+    return 7 * BH * n * dh * 4, BH * pairs * 5 * 2 * dh
+
+
+# (BH, n) of the backward's checks: the VQ-OPT train step's [8, 1024] batch
+# of 12 heads, then [4, 1024], a ragged n, a short one and a single row
+BWD_ATTENTION = ((96, 1024), (48, 1024), (48, 1000), (48, 37), (48, 1))
+BWD_TOL = 1e-5  # dq, dk, dv against the plain version, relative to its max |.|
+
+
+def check_gated_attention_bwd(mod, gen, n: int, BH: int = 48, dh: int = 64) -> dict:
+    """``gated_attention_bwd_bh`` against ``gated_attention_bwd_ref`` on the
+    card: each of dq, dk and dv within ``BWD_TOL`` of the plain version's
+    max |.|; device ms of the two kernels and the plain version's. The
+    kernels run on the FP32 cores (``cores``); ``bound_ms`` is the bound at
+    the f32 route's peak, 3xTF32 on the tensor cores as the forward's,
+    beside the FP32 cores' (``bound_fp32_ms``)."""
+    dev = torch.device("cuda")
+    q, k = (torch.randn((BH, n, dh), generator=gen, device=dev) * 0.5 for _ in range(2))
+    v, do = (torch.randn((BH, n, dh), generator=gen, device=dev) for _ in range(2))
+    got = mod.gated_attention_bwd_bh(q, k, v, do)
+    want = mod.gated_attention_bwd_ref(q, k, v, do)
+    torch.cuda.synchronize()
+    abs_err, rel_err = {}, {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        abs_err[name] = float((g - w).abs().max())
+        rel_err[name] = abs_err[name] / max(float(w.abs().max()), 1e-30)
+        if not rel_err[name] <= BWD_TOL:
+            raise AssertionError(f"gated_attention_bwd {BH}x{n}: {name} differs by "
+                                 f"{rel_err[name]} of its max (tolerance {BWD_TOL})")
+    kernel = timings(lambda: mod.gated_attention_bwd_bh(q, k, v, do),
+                     kernel="gated_attention_bwd")
+    plain = timings(lambda: mod.gated_attention_bwd_ref(q, k, v, do))
+    nbytes, flops = attention_bwd_work(BH, n, dh)
+    bound_ms, bound_by = bound(nbytes, GA_PRODUCTS * flops, GA_PEAK)
+    return dict(BH=BH, n=n, dh=dh, rel_err=rel_err, tolerance=BWD_TOL,
+                max_abs_err=max(abs_err.values()), ms=kernel["ms"],
+                kernel_ms=kernel["kernel_ms"], kernels=kernel["kernels"],
+                call_ms=kernel["call_ms"], plain_ms=plain["ms"],
+                plain_call_ms=plain["call_ms"], timing=kernel["timing"],
+                cores="fp32", bound_ms=bound_ms, bound_by=bound_by,
+                bound_fp32_ms=bound(nbytes, flops)[0],
+                bound_tc_3xtf32_ms=bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)[0])
 
 
 def check_incr_patch(mod, gen, C: int, B=4, n=1024, H=12, dh=64, Q=64):
@@ -2953,6 +3033,230 @@ def deepseek_v3_phase(cfg=None, n: int = 1024, n_dec: int = 16, device=None) -> 
                 step_seconds=laps)
 
 
+TRAIN_TIE = 1e-5  # top-two Gumbel VQ logits this close may flip between the card and the CPU
+TRAIN_LOSS_TOL = 1e-5  # the card's step loss against the CPU's, relative
+TRAIN_GRAD_TOL = 1e-4  # each gradient leaf against the CPU's, relative to its max |.|
+TRAIN_DRAWS = 3  # draws of Gumbel noise card_vs_cpu_step takes to find one with no flip
+
+
+@contextlib.contextmanager
+def recorded_vq_train():
+    """Record each training-mode VQ call (``core.vq.forward_train``, which
+    the attention layers call through the module) while the block runs:
+    its codes and the gap between its top two Gumbel logits, on the host.
+    Yields the list of calls, in call order (a remat recompute calls again)."""
+    from repro_torch.core import vq as vq_mod
+
+    calls = []
+    call = vq_mod.forward_train
+
+    def recorded(params, x, cfg, *, noise=None, generator=None):
+        out = call(params, x, cfg, noise=noise, generator=generator)
+        with torch.no_grad():
+            logits = vq_mod.scores(params, x) + (0.0 if noise is None else noise)
+            top2 = torch.topk(logits / cfg.temperature, 2, dim=-1).values
+            calls.append(dict(idx=out[1].cpu(), gap=(top2[..., 0] - top2[..., 1]).cpu()))
+        return out
+
+    with mock.patch.object(vq_mod, "forward_train", recorded):
+        yield calls
+
+
+def card_vs_cpu_step(cfg, b: int, n: int, seed: int = 0, device=None) -> dict:
+    """One train step's loss and gradients (``training.step.lm_loss``
+    through ``value_and_grad``, remat on) on ``device`` against the same on
+    the CPU through the plain versions: the same weights (drawn on the
+    CPU from ``seed``), the same ``SyntheticCorpus`` batch [b, n] with
+    sampled positions, the same Gumbel noise for every layer. VQ codes may
+    differ only where the top two Gumbel logits lie within ``TRAIN_TIE``
+    (``first_layer_flips``). A draw of noise in which a code flipped at a
+    near tie is drawn again, up to ``TRAIN_DRAWS`` draws in all; on the
+    first draw with no flip the loss must lie within ``TRAIN_LOSS_TOL`` and
+    every gradient leaf within ``TRAIN_GRAD_TOL`` of its max. Raises when
+    every draw flipped."""
+    from repro_torch.common.pytree import path_names, tree_flatten_with_path
+    from repro_torch.core import vq as vq_mod
+    from repro_torch.data import SyntheticCorpus, lm_batches
+    from repro_torch.models.transformer import init_params, params_from_numpy
+    from repro_torch.training.step import lm_loss, value_and_grad
+
+    device = device or DEVICE
+    cpu = init_params(cfg, generator=torch.Generator().manual_seed(seed), device="cpu")
+    card = params_from_numpy(cpu, device=torch.device(device))
+    batch = next(lm_batches(SyntheticCorpus(vocab=cfg.vocab, seed=0), batch=b, seq_len=n,
+                            steps=1, pos_pool=cfg.pos_pool if cfg.pos == "sampled" else None))
+    L = n_layers(cfg)
+    _, launches = launch_counters()
+    ties, flips = [], []
+    for draw in range(TRAIN_DRAWS):
+        gen = torch.Generator().manual_seed(seed + 1 + draw)
+        noise = [vq_mod.gumbel(gen, (b, n, cfg.vqt.n_heads, cfg.vqt.codebook_size))
+                 for _ in range(L)]
+        runs = []
+        for dev, params in ((torch.device("cpu"), cpu), (torch.device(device), card)):
+            bt = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            reset_launches()
+            sync(dev)
+            t0 = time.perf_counter()
+            with recorded_vq_train() as calls:
+                loss, _, grads = value_and_grad(lm_loss, params, cfg, bt, None,
+                                                vq_noise=[x.to(dev) for x in noise])
+            sync(dev)
+            runs.append(dict(loss=float(loss), grads=tree_flatten_with_path(grads),
+                             calls=calls[:L], seconds=time.perf_counter() - t0,
+                             launches={k: v for k, v in launches().items() if v}))
+        cpu_run, card_run = runs
+        diff = torch.stack([a["idx"] != c["idx"]  # [L, b, n, hq], as the gaps
+                            for a, c in zip(cpu_run["calls"], card_run["calls"])])
+        ties.append(sum(int(((a["gap"] <= TRAIN_TIE) | (c["gap"] <= TRAIN_TIE)).sum())
+                        for a, c in zip(cpu_run["calls"], card_run["calls"])))
+        flips.append(first_layer_flips(
+            diff, lambda li: (r["calls"][li]["gap"] for r in runs), TRAIN_TIE, "train step"))
+        if not flips[-1]:
+            break
+    else:
+        raise AssertionError(f"train step: a VQ code flipped at a near tie in each of "
+                             f"{TRAIN_DRAWS} draws of noise ({flips} flips)")
+    loss_diff = abs(card_run["loss"] - cpu_run["loss"])
+    if loss_diff > TRAIN_LOSS_TOL * max(1.0, abs(cpu_run["loss"])):
+        raise AssertionError(f"train step: the card's loss {card_run['loss']} differs from "
+                             f"the CPU's {cpu_run['loss']} by {loss_diff}")
+    grad_err = {}
+    for (path, g_cpu), (_, g_card) in zip(cpu_run["grads"], card_run["grads"]):
+        scale = max(float(g_cpu.abs().max()), 1e-30)
+        grad_err["/".join(path_names(path))] = float((g_card.cpu() - g_cpu).abs().max()) / scale
+    worst = max(grad_err, key=grad_err.get)
+    if grad_err[worst] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"train step: gradient {worst} differs by {grad_err[worst]} "
+                             f"of its max (tolerance {TRAIN_GRAD_TOL})")
+    return dict(b=b, n=n, layers=L, loss_card=card_run["loss"], loss_cpu=cpu_run["loss"],
+                loss_diff=loss_diff, loss_tolerance=TRAIN_LOSS_TOL,
+                grad_max_rel_err=grad_err[worst], grad_worst_leaf=worst,
+                grad_tolerance=TRAIN_GRAD_TOL, noise_draws=len(flips), near_ties=ties,
+                near_tie_flips=flips, seconds_card=card_run["seconds"],
+                seconds_cpu=cpu_run["seconds"], launches=card_run["launches"])
+
+
+def train_phase(cfg=None, teacher_cfg=None, steps: int = 8, b: int = 8, n: int = 1024,
+                check=(2, 256), lr: float = 6e-4, device=None) -> dict:
+    """Phase 19: training. (1) ``card_vs_cpu_step`` at ``cfg``'s width cut
+    to 2 layers on ``check`` = [b, n]; (2) ``cfg`` (default VQ-OPT-125M at
+    full width and depth) from seed 0 through ``make_train_step`` with
+    remat: ``steps`` steps at [b, n] of ``SyntheticCorpus(seed=0)`` with
+    sampled positions, lr ``lr``, warmup 1 — each loss finite, the last
+    below the first, 2 ``gated_attention`` launches a layer a step (the
+    forward and its recompute) and one of each backward kernel; ms a step
+    and tokens/s over steps 2.., peak memory; one more step profiled; (3)
+    3 ``make_distill_step`` steps from the trained state with the teacher
+    ``teacher_cfg`` (default OPT-125M at full width, seed 1): kl and lm
+    finite; (4) ``save_pytree`` -> ``restore_pytree`` of the trained
+    parameters (every leaf bitwise), and a ``BatchServer`` serving a
+    256-token document from the restored file gives logits bitwise equal to
+    one serving the in-memory parameters."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+    from repro_torch.configs.base import uniform_stages
+    from repro_torch.configs.vq_opt_125m import config
+    from repro_torch.data import SyntheticCorpus, lm_batches
+    from repro_torch.models.transformer import init_params, params_from_numpy
+    from repro_torch.serving.batch_server import BatchServer
+    from repro_torch.training import (
+        make_distill_step, make_schedule, make_train_step, train_state_init,
+    )
+    from repro_torch.common.pytree import tree_leaves
+
+    cfg = cfg or config()
+    teacher_cfg = teacher_cfg or config(vqt=False)
+    device = torch.device(device or DEVICE)
+    L = n_layers(cfg)
+    out = {}
+    laps, lap = stopwatch()
+    cut = dataclasses.replace(cfg, n_layers=2, stages=uniform_stages(cfg.layer_list()[0], 2))
+    out["card_vs_cpu"] = card_vs_cpu_step(cut, *check, device=device)
+    lap("card_vs_cpu")
+
+    st = train_state_init(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    out["parameters"] = sum(p.numel() for p in tree_leaves(st.params))
+    step = make_train_step(cfg, make_schedule(peak_lr=lr, warmup_steps=1, total_steps=steps))
+    batches = list(lm_batches(SyntheticCorpus(vocab=cfg.vocab, seed=0), batch=b, seq_len=n,
+                              steps=steps, pos_pool=cfg.pos_pool))
+    lap("init")
+    _, launches = launch_counters()
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    mem0 = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    reset_launches()
+    losses, aux, gnorms, ms = [], [], [], []
+    for batch in batches:
+        sync(device)
+        t0 = time.perf_counter()
+        st, m = step(st, batch)
+        sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["lm_loss"]))
+        aux.append(float(m["aux_loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    counts = {k: v for k, v in launches().items() if v}
+    lap("train")
+    if not all(np.isfinite(losses + aux + gnorms)):
+        raise AssertionError(f"train: a loss or grad norm is not finite: {losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    want = {"gated_attention": 2 * L * steps, "gated_attention_bwd_dkv": L * steps,
+            "gated_attention_bwd_dq": L * steps}
+    if counts != want:
+        raise AssertionError(f"train: launches {counts}, expected {want}")
+    step_ms = float(np.mean(ms[1:])) if len(ms) > 1 else ms[0]
+    out["train"] = dict(
+        b=b, n=n, steps=steps, lr=lr, lm_loss=losses, aux_loss=aux, grad_norm=gnorms,
+        step_ms=ms, ms_per_step=step_ms, tokens_per_s=b * n / (step_ms / 1e3),
+        launches=counts, launches_per_step={k: v / steps for k, v in counts.items()},
+        peak_mem_gb=(torch.cuda.max_memory_allocated(device) - mem0) / 1e9
+        if device.type == "cuda" else None,
+        profile=profiled(lambda: step(st, batches[0]),
+                         ("gated_attention_kernel", "gated_attention_bwd_dkv",
+                          "gated_attention_bwd_dq"), top=8)
+        if device.type == "cuda" else None)
+    lap("profile")
+
+    teacher = init_params(teacher_cfg, generator=torch.Generator().manual_seed(1), device=device)
+    dstep = make_distill_step(cfg, teacher_cfg, make_schedule(peak_lr=lr, warmup_steps=1,
+                                                              total_steps=3))
+    ds, dm = st, []
+    for batch in batches[:3]:
+        ds, m = dstep(ds, teacher, batch)
+        dm.append({k: float(m[k]) for k in ("loss", "kl", "lm", "aux_loss", "grad_norm")})
+    if not all(np.isfinite([v for d in dm for v in d.values()])):
+        raise AssertionError(f"distill: a loss is not finite: {dm}")
+    out["distill"] = dm
+    del ds, teacher
+    lap("distill")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "student.npz")
+        save_pytree(path, st.params)
+        like = init_params(cfg, generator=torch.Generator().manual_seed(2), device=device)
+        restored = restore_pytree(path, like)
+    if not all(torch.equal(a, r) for a, r in zip(tree_leaves(st.params), tree_leaves(restored))):
+        raise AssertionError("checkpoint: a restored leaf differs from the saved one")
+    doc = [int(t) for t in np.random.default_rng(0).integers(0, cfg.vocab, 256)]
+    logits = []
+    for params in (st.params, restored):  # the server takes host weights
+        srv = BatchServer(params_from_numpy(params, device="cpu"), cfg, device=device)
+        srv.open_documents({"d": doc})
+        logits.append(srv.logits("d"))
+        del srv
+    if not np.array_equal(*logits):
+        raise AssertionError("checkpoint: logits served from the restored file differ")
+    out["checkpoint"] = dict(leaves=len(tree_leaves(restored)), bitwise=True,
+                             logits_finite=bool(np.isfinite(logits[0]).all()))
+    lap("checkpoint")
+    out["laps_s"] = laps
+    return out
+
+
 SWEEPS = ("delta_gate", "vq_assign", "patch", "gated_attention")
 
 
@@ -3017,13 +3321,15 @@ def main() -> int:
     vqs = [check_vq_assign(vqk, gen, B, N) for B, N in ((4, 1024), (1, 1024), (1, 32), (1, 1))]
     vqs += [check_vq_assign(vqk, gen, 1, N, dv=dv) for N, dv in FAMILY_VQ]
     gas = [check_gated_attention(gak, gen, n) for n in (1024, 1000, 37)]
+    gas.append(check_gated_attention(gak, gen, 1024, BH=96))  # the train step's
     gas += [check_gated_attention(gak, gen, nq, nk, BH=BH, dh=dh)
             for BH, nq, nk, dh in WIDE_ATTENTION + HYMBA_ATTENTION]
+    gabs = [check_gated_attention_bwd(gak, gen, n, BH=BH) for BH, n in BWD_ATTENTION]
     ips = [check_incr_patch(ipk, gen, C) for C in (8, 72, 264)]
     ips.append(check_incr_patch(ipk, gen, 1032, B=1))  # the most served step
     emit("kernels", seconds=time.perf_counter() - t0, fused_step=fused,
          delta_gate=gates, launch_floor=floor, vq_assign=vqs, gated_attention=gas,
-         incr_patch=ips)
+         gated_attention_bwd=gabs, incr_patch=ips)
 
     # ---- 4. serve (the main path)
     cfg = config()
@@ -3192,6 +3498,13 @@ def main() -> int:
     moe["deepseek_v3"] = deepseek_v3_phase()
     emit("moe", seconds=time.perf_counter() - t0, nvidia_smi=smi, **moe)
 
+    # ---- 19. train: Gumbel-VQ training, distillation, pytree checkpoints
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    trn = train_phase()
+    emit("train", seconds=time.perf_counter() - t0, nvidia_smi=smi, **trn)
+
     # ---- summary
     c72 = next(f for f in fused if f["C"] == 72 and f["mask"] == "random")
     r_top = max(gate_rows, key=gate_rows.get)  # the most served r
@@ -3214,7 +3527,7 @@ def main() -> int:
              library_ms=None, r=r_top, launch_floor_ms=floor["ms"]),
     ]
     vq1024 = next(v for v in vqs if v["B"] == 1 and v["N"] == 1024 and v["dv"] == 384)
-    ga1024 = next(g for g in gas if g["nq"] == 1024 and g["dh"] == 64)
+    ga1024 = next(g for g in gas if g["BH"] == 48 and g["nq"] == 1024 and g["dh"] == 64)
     ip72 = next(i for i in ips if i["B"] == 4 and i["C"] == 72)
     for name, src, tpu, launches, errs, row in (
             ("vq_assign", "vq_assign.cu", "vq_assign/vq_assign.py:61",
@@ -3257,6 +3570,20 @@ def main() -> int:
             N=N, launches=launches,
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None)
+    # the backward: launches from the train phase's 8 full-size steps
+    gab = next(g for g in gabs if g["BH"] == 96 and g["n"] == 1024)
+    kernels.append(dict(
+        name="gated_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/gated_attention_bwd.cu",
+        replaces="src/repro/kernels/gated_attention/gated_attention.py:90",
+        gradient_of="the reference differentiates plain JAX σ attention "
+                    "(src/repro/models/attention.py:114, USE_PALLAS_SIGMA = False)",
+        launches=sum(v for k, v in trn["train"]["launches"].items() if "bwd" in k),
+        max_abs_err=max(g["max_abs_err"] for g in gabs),
+        max_rel_err=max(e for g in gabs for e in g["rel_err"].values()),
+        ms=gab["ms"], plain_ms=gab["plain_ms"], bound_ms=gab["bound_ms"],
+        bound_by=gab["bound_by"], library_ms=None, BH=96, n=1024, cores=gab["cores"],
+        bound_fp32_ms=gab["bound_fp32_ms"], bound_tc_3xtf32_ms=gab["bound_tc_3xtf32_ms"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,11 @@
-"""Serving-document checkpoints — the document half of
-``repro/checkpoint/store.py`` (framework-free: NumPy and JSON only).
+"""Checkpoints — the port of ``repro/checkpoint/store.py``: NPZ pytree
+files (parameters, train states) and serving-document snapshots.
+
+Pytrees are flattened to ``path -> ndarray`` npz entries, the path joined
+from ``common.pytree.path_names`` (``params/stages/0/0/mixer/vq/codebook``),
+and restored into the structure of a ``like`` tree, as the reference does.
+Key strings, dtypes and shapes are the reference's, so a parameter or
+train-state file written by either package reads in the other.
 
 A serving document's durable incremental state is more than its arrays: the
 position allocator's id sequence and the suggestion watermarks travel with
@@ -10,10 +16,7 @@ Everything lives in ONE npz (no sidecar): state leaves under
 server's host mirrors and slot layout under ``mirror/<name>`` (full serving
 snapshots only), and the scalar metadata as a JSON string array (unicode
 arrays load without pickle). Leaf names, dtypes and shapes are the
-reference's, so a file written by either package reads in the other.
-
-The reference's pytree and train-state half (``save_pytree`` /
-``restore_pytree``) walks jax tree paths; it lands with training.
+reference's here too.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import os
 from typing import Optional
 
 import numpy as np
+
+from repro_torch.common.pytree import path_names, tree_flatten_with_path, tree_map_with_path
 
 _DOC_META_KEY = "doc_meta/json"
 # Attention reduces over the slot axis, so a permutation of slots changes
@@ -35,6 +40,52 @@ def _leaf(x) -> np.ndarray:
     if hasattr(x, "detach"):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _key(path) -> str:
+    return "/".join(path_names(path))
+
+
+def save_pytree(path: str, tree, metadata: Optional[dict] = None) -> None:
+    """Every leaf of ``tree`` (tensors on any device, arrays, scalars) as an
+    npz entry under its path; ``metadata`` in a ``.meta.json`` sidecar."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **{_key(p): _leaf(leaf) for p, leaf in tree_flatten_with_path(tree)})
+    if metadata is not None:
+        with open(path + ".meta.json", "w") as f:
+            json.dump(metadata, f, indent=2, default=str)
+
+
+def restore_pytree(path: str, like):
+    """Restore into the structure of ``like``: each leaf keeps ``like``'s
+    dtype and device (a tensor stays a tensor there, else an array).
+    Raises ``KeyError`` on a missing entry, ``ValueError`` on a shape that
+    differs from ``like``'s."""
+    import torch
+
+    data = np.load(path if path.endswith(".npz") else path + ".npz")
+
+    def load(p, leaf):
+        key = _key(p)
+        if key not in data:
+            raise KeyError(f"checkpoint missing array {key!r}")
+        arr = data[key]
+        if tuple(arr.shape) != tuple(np.shape(leaf)):
+            raise ValueError(f"{key}: checkpoint shape {arr.shape} != expected "
+                             f"{tuple(np.shape(leaf))}")
+        if isinstance(leaf, torch.Tensor):
+            return torch.as_tensor(np.array(arr)).to(dtype=leaf.dtype, device=leaf.device)
+        return arr.astype(np.asarray(leaf).dtype)
+
+    return tree_map_with_path(load, like)
+
+
+def save_train_state(path: str, state, step: Optional[int] = None) -> None:
+    save_pytree(path, state, metadata={"step": step})
+
+
+def restore_train_state(path: str, like):
+    return restore_pytree(path, like)
 
 
 def atomic_savez(path: str, arrays: dict) -> None:

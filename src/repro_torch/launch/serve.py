@@ -21,8 +21,10 @@ cross-replica migration mid-run):
 
 Everything runs on the card (``--device cuda``, the default) at the full
 VQ-OPT-125M width; ``--smoke`` takes the reduced config, and ``--device cpu``
-runs the plain PyTorch path. Weights are the port's seeded init (seed 0).
-``--ckpt`` is not ported yet: it raises.
+runs the plain PyTorch path. Weights are the port's seeded init (seed 0),
+or, with ``--ckpt``, a parameter file of either package (``save_pytree``,
+e.g. ``repro_torch.examples.distill_vqt``'s) restored into them; fleet
+replicas build their own seed-0 weights, as the reference's.
 """
 from __future__ import annotations
 
@@ -230,7 +232,8 @@ def main(argv=None):
     ap.add_argument("--doc-len", type=int, default=128)
     ap.add_argument("--edits", type=int, default=20)
     ap.add_argument("--ckpt", default=None,
-                    help="not ported yet (needs restore_pytree)")
+                    help="a parameter file (save_pytree) to serve instead of the "
+                         "seed-0 weights")
     ap.add_argument("--tiered", action="store_true",
                     help="multi-session fleet under a device-memory budget")
     ap.add_argument("--docs", type=int, default=8,
@@ -248,16 +251,16 @@ def main(argv=None):
                          "the document router")
     args = ap.parse_args(argv)
 
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt needs checkpoint.restore_pytree, which is not ported yet "
-            "(ROADMAP Queue A item 10, training)")
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.fleet:
         run_fleet(args, cfg)  # replicas build their own weights (same seed)
         return
     params = init_params(cfg, generator=torch.Generator().manual_seed(0),
                          device="cpu")
+    if args.ckpt:
+        from repro_torch.checkpoint import restore_pytree
+
+        params = restore_pytree(args.ckpt, params)
     if args.tiered:
         run_tiered(args, cfg, params)
     elif args.async_fleet:

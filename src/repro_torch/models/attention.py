@@ -131,6 +131,10 @@ def _project_out(params: dict, o: torch.Tensor) -> torch.Tensor:
     """VQ hook (inference), then the mixing projection."""
     if "vq" in params:
         o, _ = vq_mod.quantize(params["vq"], o)
+    return _mix(params, o)
+
+
+def _mix(params: dict, o: torch.Tensor) -> torch.Tensor:
     o = o @ params["wo"]
     if "bo" in params:
         o = o + params["bo"]
@@ -139,14 +143,19 @@ def _project_out(params: dict, o: torch.Tensor) -> torch.Tensor:
 
 def attn_apply(params: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
                positions: torch.Tensor, *, train: bool = False,
-               vq_rng=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full (prefill-style) attention over [b, n, d]. Returns (out [b, n, d],
-    vq aux loss — 0 at inference)."""
-    if train:
-        raise NotImplementedError("training-mode VQ comes with the training slice")
+               vq_noise: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full (train / prefill) attention over [b, n, d]. Returns (out
+    [b, n, d], vq aux loss — 0 at inference). With ``train`` the VQ hook is
+    the Gumbel straight-through ``vq.forward_train`` with ``vq_noise`` (the
+    scores' shape, [b, n, hq, Q]; None: no noise), as the reference's
+    ``attention.py:192-222``; the σ core stays the ``gated_attention``
+    kernel (differentiable), the softmax core plain PyTorch."""
     q, k, v = _qkv(params, cfg, x, positions)
     o = full_attention(q, k, v, causal=True, window=layer.window,
                        softmax=cfg.attn_softmax)
+    if train and "vq" in params:
+        o, _, aux = vq_mod.forward_train(params["vq"], o, cfg.vqt, noise=vq_noise)
+        return _mix(params, o), aux
     return _project_out(params, o), torch.zeros((), device=x.device)
 
 

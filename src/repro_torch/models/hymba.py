@@ -124,7 +124,7 @@ def hymba_apply(params: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
     [b, n, d], vq aux loss — 0 at inference)."""
     if train:
         raise NotImplementedError(
-            "training-mode VQ comes with the port's training slice (ROADMAP Queue A item 10)")
+            "training this mixer comes with ROADMAP Queue A item 10b")
     b, n, _ = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     # attention branch

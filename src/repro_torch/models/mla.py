@@ -94,7 +94,7 @@ def mla_apply(params: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
     loss — 0 at inference)."""
     if train:
         raise NotImplementedError(
-            "training comes with the port's training slice (ROADMAP Queue A item 10)")
+            "training this mixer comes with ROADMAP Queue A item 10b")
     m = cfg.mla
     b, n, _ = x.shape
     H = cfg.n_heads

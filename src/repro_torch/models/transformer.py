@@ -26,7 +26,11 @@ Entry points:
     ``caches_from_kv`` take non-windowed GQA stacks only, as in the
     reference.
 
-Training comes with a later slice (ROADMAP Queue A item 10).
+Training: ``forward(train=True)`` for GQA stacks (the Gumbel
+straight-through VQ, σ attention differentiated by the ``gated_attention``
+backward kernel, each layer recomputed in the backward with ``remat``);
+the mla, hymba and rwkv6 mixers, the MoE FFN and the MTP head raise,
+naming ROADMAP Queue A item 10b.
 
 Parameter layout::
 
@@ -56,10 +60,12 @@ rwkv6 ``{"tm": {"S": [b, H, dh, dh], "x_last": [b, d]}, "cm_x_last": [b, d]}``.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, LayerCfg
@@ -231,9 +237,12 @@ def _ffn_fwd(lp: dict, cfg: ArchConfig, layer: LayerCfg,
 
 
 def _layer_fwd(lp: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
-               positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+               positions: torch.Tensor, vq_noise: Optional[torch.Tensor] = None, *,
+               train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm block: x + mixer(n1(x)); then x + ffn(n2(x)). Returns (x,
-    the layer's aux loss: VQ's, 0 at inference, plus the MoE router's)."""
+    the layer's aux loss: VQ's, 0 at inference, plus the MoE router's).
+    ``train`` (GQA layers only, ``_check_trainable``) runs the training-mode
+    VQ with ``vq_noise``."""
     _check_mixer(layer)
     h = apply_norm(cfg.norm, lp["norm1"], x)
     if layer.mixer == "mla":
@@ -244,7 +253,8 @@ def _layer_fwd(lp: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
         mix, _, _ = rwkv_mod.rwkv_time_mix(lp["mixer"], cfg, h)
         aux = torch.zeros((), device=x.device)
     else:
-        mix, aux = attn_apply(lp["mixer"], cfg, layer, h, positions)
+        mix, aux = attn_apply(lp["mixer"], cfg, layer, h, positions, train=train,
+                              vq_noise=vq_noise)
     x = x + mix
     h2 = apply_norm(cfg.norm, lp["norm2"], x)
     if layer.ffn == "rwkv_cm":
@@ -271,9 +281,36 @@ def _head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _check_trainable(cfg: ArchConfig) -> None:
+    """Training runs GQA stacks with dense FFNs and no MTP head."""
+    what = ["the MTP head"] if cfg.mtp else []
+    for layer in cfg.layer_list():
+        if layer.mixer != "gqa":
+            what.append(f"the {layer.mixer} mixer")
+        if layer.ffn == "moe":
+            what.append("the moe FFN")
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: training {', '.join(sorted(set(what)))} comes with "
+            "ROADMAP Queue A item 10b")
+
+
+def _layer_noise(cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor, li: int,
+                 gen: torch.Generator, vq_noise) -> Optional[torch.Tensor]:
+    """Layer ``li``'s Gumbel noise [b, n, hq, Q]: ``vq_noise[li]`` when
+    given, else drawn from ``gen``; None for a layer without VQ."""
+    if cfg.vqt is None or layer.mixer != "gqa":
+        return None
+    if vq_noise is not None:
+        return torch.as_tensor(vq_noise[li], dtype=torch.float32, device=x.device)
+    shape = (*x.shape[:2], cfg.vqt.n_heads, cfg.vqt.codebook_size)
+    return vq_mod.gumbel(gen, shape).to(x.device)
+
+
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, *, patch_embeds=None,
-            train: bool = False, rng=None) -> tuple[torch.Tensor, dict]:
+            train: bool = False, rng: Optional[torch.Generator] = None,
+            vq_noise=None, remat: bool = True) -> tuple[torch.Tensor, dict]:
     """tokens: [b, n] (audio: [b, n, n_codebooks]); positions: [b, n]
     absolute ids (default 0..n-1). For VLM inputs ``patch_embeds``
     [b, n_patches, d] are projected and prefixed, at positions
@@ -281,10 +318,17 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     sequence. Returns (logits [b, n, vocab] or [b, n, cb, vocab],
     {"aux_loss", "hidden"} and, with ``cfg.mtp``, "mtp_logits": the depth-1
     multi-token prediction from h_t and the embedding of token t + 1, the
-    last row's next token wrapping to the first as ``jnp.roll`` does)."""
+    last row's next token wrapping to the first as ``jnp.roll`` does).
+
+    ``train`` mirrors the reference's ``_run_stages`` (``transformer.py:
+    146-186``): each VQ layer draws its own Gumbel noise from the generator
+    ``rng`` (a seed-0 generator on the tokens' device when None), before the
+    layer body — ``torch.utils.checkpoint`` (``remat``, the reference's
+    ``jax.checkpoint``) recomputes the body in the backward and does not
+    replay an explicit generator. ``vq_noise``, a list indexed by the
+    layer's global index, overrides the draws."""
     if train:
-        raise NotImplementedError(
-            "training comes with the port's training slice (ROADMAP Queue A item 10)")
+        _check_trainable(cfg)
     b, n = tokens.shape[:2]
     if positions is None:
         positions = torch.arange(n, dtype=torch.int32, device=tokens.device).expand(b, n)
@@ -298,12 +342,23 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             [torch.arange(npat, dtype=positions.dtype, device=x.device).expand(b, npat),
              positions + npat], dim=1)
     aux = torch.zeros((), device=x.device)
+    if train and rng is None:
+        rng = torch.Generator(device=x.device).manual_seed(0)
+    li = 0
     for (pattern, repeat), sp in zip(cfg.stages, params["stages"]):
         for r in range(repeat):
             spr = _index(sp, r)
-            for pi, layer in enumerate(pattern):
-                x, a = _layer_fwd(spr[pi], cfg, layer, x, positions)
+            for layer, lp in zip(pattern, spr):
+                if train:
+                    noise = _layer_noise(cfg, layer, x, li, rng, vq_noise)
+                    body = partial(_layer_fwd, lp, cfg, layer, train=True)
+                    x, a = (checkpoint(body, x, positions, noise, use_reentrant=False,
+                                       preserve_rng_state=False)
+                            if remat else body(x, positions, noise))
+                else:
+                    x, a = _layer_fwd(lp, cfg, layer, x, positions)
                 aux = aux + a
+                li += 1
     out_aux = {"aux_loss": aux, "hidden": x}
     if cfg.mtp and "mtp" in params:
         m = params["mtp"]

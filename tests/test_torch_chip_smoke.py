@@ -389,3 +389,84 @@ def test_decode_gate_raises_on_a_wrong_step(monkeypatch):
     monkeypatch.setattr(T, "decode_step", lambda *a: (lambda r: (r[0] + 0.01, r[1]))(step(*a)))
     with pytest.raises(AssertionError, match="logits differ"):
         cs.decode_check(params, cfg, toks, 6, "t", "cpu")
+
+
+@pytest.mark.parametrize("n", [1, 5, 64, 70])
+def test_attention_bwd_work_counts_five_products_a_causal_pair(n):
+    """The backward's work at nq = nk = n: q, k, v and dO read once, dq, dk
+    and dv written once; the 5 products the gradient needs (S, dW, dV, dK,
+    dQ; not the kernels' recomputed S and dW) of 2 dh operations for every
+    pair the plain version's mask keeps."""
+    from repro_torch.kernels.gated_attention import gated_attention_bwd_ref
+
+    q = k = torch.ones((1, n, 64))
+    dv = gated_attention_bwd_ref(q, k, torch.zeros((1, n, 64)), torch.ones((1, n, 64)))[2]
+    attended = int(sum(min(i + 1, n) for i in range(n)))
+    assert float(dv[0, :, 0].sum()) > 0  # every key is attended by its own row
+    nbytes, flops = cs.attention_bwd_work(3, n)
+    assert nbytes == 7 * 3 * n * 64 * 4
+    assert flops == 3 * attended * 5 * 2 * 64
+
+
+def test_gated_attention_bwd_bound_at_the_train_shape():
+    """BH=96 (8 x 12 heads), n=1024: 32.24 GFLOP, 0.195 ms as 3xTF32 on
+    the tensor cores (the route's peak, as the forward's bound), 0.481 ms
+    on the FP32 cores; its 176 MB are 0.053 ms at 3.35 TB/s."""
+    nbytes, flops = cs.attention_bwd_work(96, 1024)
+    assert nbytes == 176_160_768 and flops == 32_243_712_000
+    ms, by = cs.bound(nbytes, cs.GA_PRODUCTS * flops, cs.GA_PEAK)
+    assert by == "operations" and abs(ms - 0.195416) < 1e-5
+    ms, by = cs.bound(nbytes, flops)
+    assert by == "operations" and abs(ms - 0.481250) < 1e-5
+
+
+@pytest.mark.parametrize("flips,draws", [((1, 0), 2), ((2, 1, 3), None)])
+def test_card_vs_cpu_step_redraws_noise_after_a_tie_flip(monkeypatch, flips, draws):
+    """A draw of Gumbel noise in which a code flipped at a near tie is drawn
+    again; the gates hold on the first draw with none, and the step raises
+    when every one of ``TRAIN_DRAWS`` draws flipped (CPU against CPU, the
+    flips stubbed)."""
+    from repro_torch.configs.vq_opt_125m import smoke_config
+
+    seen = iter(flips)
+    monkeypatch.setattr(cs, "first_layer_flips", lambda *a: next(seen))
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    if draws is None:
+        with pytest.raises(AssertionError, match="each of 3 draws"):
+            cs.card_vs_cpu_step(smoke_config(), b=1, n=16)
+        return
+    out = cs.card_vs_cpu_step(smoke_config(), b=1, n=16)
+    assert out["noise_draws"] == draws and out["near_tie_flips"] == list(flips)
+    assert out["loss_diff"] == 0.0 and out["grad_max_rel_err"] == 0.0
+
+
+def test_train_phase_gates_pass_on_the_cpu(monkeypatch):
+    """Phase 19's gates at smoke size on the CPU: the card-vs-CPU step (here
+    CPU against CPU), 6 train steps whose loss falls with 2 forward and one
+    of each backward launch a layer a step (the wrappers' CPU calls
+    counted), 3 distill steps, and the checkpoint's bitwise round trip and
+    served logits."""
+    from repro_torch.configs.vq_opt_125m import smoke_config
+    from repro_torch.kernels import gated_attention as gak
+    from repro_torch.kernels.gated_attention import ops as ga_ops
+
+    def counted(names, fn):
+        def call(*a):
+            for name in names:
+                gak.LAUNCHES[name] += 1
+            return fn(*a)
+        return call
+
+    monkeypatch.setattr(ga_ops, "_forward_bh", counted(("gated_attention",), ga_ops._forward_bh))
+    monkeypatch.setattr(ga_ops, "gated_attention_bwd_bh", counted(
+        ("gated_attention_bwd_dkv", "gated_attention_bwd_dq"), ga_ops.gated_attention_bwd_bh))
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    out = cs.train_phase(cfg=smoke_config(), teacher_cfg=smoke_config(vqt=False), steps=6,
+                         b=4, n=32, check=(2, 32), device="cpu")
+    assert out["card_vs_cpu"]["noise_draws"] == 1 and out["card_vs_cpu"]["loss_diff"] < 1e-5
+    train = out["train"]
+    assert train["launches_per_step"] == {"gated_attention": 4.0,
+                                          "gated_attention_bwd_dkv": 2.0,
+                                          "gated_attention_bwd_dq": 2.0}
+    assert train["lm_loss"][-1] < train["lm_loss"][0] and len(train["grad_norm"]) == 6
+    assert len(out["distill"]) == 3 and out["checkpoint"]["bitwise"]

@@ -279,6 +279,7 @@ def _qkv(dev, BH, nq, nk, amp=1.0, seed=None, dh=64):
     (5, 100, 70, 1), (5, 70, 100, 1), (3, 1, 1, 1),
     (48, 2048, 2048, 1),  # the longest full_attention sends the kernel
     (12, 1024, 1024, 1),  # one document of 12 heads
+    (96, 1024, 1024, 1),  # the VQ-OPT-125M train step's [8, 1024] batch
     (4, 65, 65, 1),       # one row past a 64-row tile
     (4, 16, 16, 1),       # one warp's 16 rows
     (4, 1024, 512, 1),    # nq > nk: rows past nk attend every key
@@ -472,3 +473,83 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="dh=Q=64"):
         ip.incr_patch(torch.zeros((3, 2, 16), device=dev), *[torch.zeros((2, 4, 16), device=dev)] * 4,
                       torch.ones((3, 4), device=dev))
+
+
+def _bwd_inputs(dev, BH, n, seed=None, amp=1.0):
+    q, k, v = _qkv(dev, BH, n, n, amp, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(7 + n)
+    return q, k, v, torch.randn((BH, n, 64), generator=gen, device=dev)
+
+
+@pytest.mark.parametrize("BH,n,amp", [
+    (96, 1024, 1), (48, 1024, 1), (48, 1000, 1), (48, 37, 1), (48, 1, 1),  # chip_smoke's
+    (3, 64, 1),    # one tile
+    (3, 65, 1),    # one row past a tile
+    (3, 129, 1),   # three tiles, the last of one row
+    (8, 300, 3),   # |s| up to ~10: the GELU's tail and its derivative's
+])
+def test_gated_attention_bwd_kernel_matches_plain(dev, BH, n, amp):
+    """dq, dk and dv of the two backward kernels within chip_smoke's
+    tolerance (1e-5 of the plain version's max |.|); one launch each."""
+    q, k, v, do = _bwd_inputs(dev, BH, n, amp=amp)
+    before = dict(ga.LAUNCHES)
+    got = ga.gated_attention_bwd_bh(q, k, v, do)
+    torch.cuda.synchronize()
+    assert ga.LAUNCHES["gated_attention_bwd_dkv"] == before["gated_attention_bwd_dkv"] + 1
+    assert ga.LAUNCHES["gated_attention_bwd_dq"] == before["gated_attention_bwd_dq"] + 1
+    for g, w in zip(got, ga.gated_attention_bwd_ref(q, k, v, do)):
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= cs.BWD_TOL * float(w.abs().max())
+
+
+def test_gated_attention_bwd_two_calls_are_bitwise_equal(dev):
+    q, k, v, do = _bwd_inputs(dev, 12, 700)
+    a = ga.gated_attention_bwd_bh(q, k, v, do)
+    b = ga.gated_attention_bwd_bh(q, k, v, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_gated_attention_autograd_on_the_card_is_the_kernels(dev):
+    """The model-layout wrapper under autograd (GQA 8 : 4, so a repeated
+    head's gradient sums over its repeats): the forward and backward
+    kernels launch, and the gradients equal autograd of the plain σ
+    attention core within 1e-5 of each gradient's max."""
+    from repro_torch.models.attention import attention_core, make_mask
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((2, 150, h, 64), generator=gen, device=dev) * s
+               for h, s in ((8, 0.5), (4, 0.5), (4, 1.0)))
+    go = torch.randn((2, 150, 512), generator=gen, device=dev)
+    before = dict(ga.LAUNCHES)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad((ga.gated_attention(*leaves) * go).sum(), leaves)
+    assert {key: ga.LAUNCHES[key] - before[key] for key in before} == {
+        "gated_attention": 1, "gated_attention_bwd_dkv": 1, "gated_attention_bwd_dq": 1}
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain = attention_core(*leaves, make_mask(150, 150, causal=True, window=None, device=dev),
+                           softmax=False)
+    want = torch.autograd.grad((plain * go).sum(), leaves)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_gated_attention_bwd_refuses_what_it_does_not_take(dev):
+    x = torch.zeros((2, 8, 128), device=dev)
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        ga.gated_attention_bwd_bh(x, x, x, x)
+    q, k = torch.zeros((2, 8, 64), device=dev), torch.zeros((2, 9, 64), device=dev)
+    with pytest.raises(ValueError, match="nq = nk"):
+        ga.gated_attention_bwd_bh(q, k, k, q)
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One train step of the smoke VQ-OPT on the card against the CPU,
+    same weights, batch and Gumbel noise (``chip_smoke.card_vs_cpu_step``):
+    the loss and every gradient leaf within its tolerances, a VQ code
+    flipped only at a near tie, and the gates held on a draw of noise in
+    which none flipped."""
+    from repro_torch.configs.vq_opt_125m import smoke_config
+
+    out = cs.card_vs_cpu_step(smoke_config(), b=2, n=96)
+    assert out["near_tie_flips"][-1] == 0 and out["noise_draws"] <= cs.TRAIN_DRAWS
+    assert out["launches"]["gated_attention_bwd_dq"] == 2

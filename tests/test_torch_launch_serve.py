@@ -1,7 +1,9 @@
 """``python -m repro_torch.launch.serve`` on the CPU: the default
 single-document op-count mode prints the reference's lines, the tiered,
-async and fleet demos run end to end with ``--smoke --device cpu``, and
-``--ckpt``, not ported yet, raises with the ROADMAP item that owns it."""
+async and fleet demos run end to end with ``--smoke --device cpu``, and the
+launchers' modes not ported yet (``launch.train``'s production meshes)
+raise with the ROADMAP item that owns them. ``--ckpt`` is held in
+``tests/test_torch_pytree_checkpoint.py``."""
 import argparse
 import re
 
@@ -72,7 +74,10 @@ def test_single_document_mode_is_the_default(capsys):
     assert "totals: edits=3 defrags=0" in out
 
 
-@pytest.mark.parametrize("argv,item", [(["--tiered", "--ckpt", "x.npz"], "item 10")])
+@pytest.mark.parametrize("argv,item", [(["--mesh", "single"], "item 11"),
+                                       (["--mesh", "pod"], "item 11")])
 def test_modes_not_ported_raise(argv, item):
+    from repro_torch.launch import train
+
     with pytest.raises(NotImplementedError, match=item):
-        serve.main(["--smoke", "--device", "cpu", *argv])
+        train.main(["--arch", "vq-opt-125m", "--smoke", "--device", "cpu", *argv])

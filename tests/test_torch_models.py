@@ -114,16 +114,19 @@ def test_forward_last_row_matches_engine_full_forward(setup):
 
 
 def test_unported_modes_raise(setup):
-    """Training still raises, naming the ROADMAP item that ports it; the MLA
-    mixer (here on VQ-OPT's GELU FFN, with deepseek-v2's smoke MLA dims), the
-    recurrent mixers (hymba, rwkv6 with its channel-mix), vision inputs and
-    windowed (ring) caches now work; an unknown mixer raises."""
+    """Training the MLA mixer still raises, naming the ROADMAP item that
+    ports it (VQ-OPT's own training now runs); the MLA mixer (here on
+    VQ-OPT's GELU FFN, with deepseek-v2's smoke MLA dims), the recurrent
+    mixers (hymba, rwkv6 with its channel-mix), vision inputs and windowed
+    (ring) caches now work; an unknown mixer raises."""
     _, _, _, tp = setup
     toks = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PT.forward(tp, port_smoke(), toks, train=True)
+    logits, aux = PT.forward(tp, port_smoke(), toks, torch.arange(4)[None] * 3, train=True)
+    assert bool(torch.isfinite(logits).all()) and float(aux["aux_loss"]) > 0
     other = dataclasses.replace(port_smoke(), mla=get_config("deepseek-v2-236b", smoke=True).mla,
                                 stages=uniform_stages(LayerCfg("mla", "gelu"), 2))
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        PT.forward(tp, other, toks, train=True)
     caches = PT.init_caches(other, 1, 4, device="cpu")
     assert set(caches[0][0]["mix"]) == {"ckv", "krope", "len"}
     assert caches[0][0]["mix"]["ckv"].shape == (2, 1, 4, other.mla.kv_lora)
