@@ -35,9 +35,10 @@ and exits non-zero):
                 beside the FP32 cores'), the ``gated_attention`` backward
                 (``BWD_ATTENTION``: BH=96 and 48 at n=1024, BH=48 at n in
                 {1000, 37, 1}, dh=64; dq, dk and dv each within 1e-5 of
-                the plain version's max |.|; its bound, 5 products a
-                causal pair, at the 3xTF32 route's peak beside the FP32
-                cores', on which it runs)
+                the plain version's max |.|; the dK/dV and dQ kernels'
+                device ms apart; its bound, 5 products a causal pair, at
+                the 3xTF32 route's peak, on which it runs, beside the FP32
+                cores')
                 and ``incr_patch`` (B=4, n=1024, H=12, C in
                 {8, 72, 264}, and 1x1024x1032, the most served step; within
                 1e-4, all-masked rows exactly 0).
@@ -266,10 +267,13 @@ layouts forced, and ``gated_attention`` against its plain version at
 BH=48 x n in {37, 128, 256, 512, 1000, 1024, 2048}, BH=12 x n=1024,
 BH=48 at (nq, nk) = (1024, 512) and (512, 1024) (dh=64), and dh=128 at
 BH=24 x n in {4096, 1000}, dh=256 at BH=16 x n in {3072, 1000} and dh=64
-at hymba's BH=25 x n in {4096, 1000}, with both bounds; one
+at hymba's BH=25 x n in {4096, 1000}, with both bounds, and the
+``gated_attention`` backward at ``SWEEP_BWD`` (the train step's BH=96 x
+n=1024, BH=48 x n in {128, 256, 512, 1000, 1024, 2048}), each held to
+``BWD_TOL``, the dK/dV and dQ kernels' device ms apart; one
 line a shape, and prints no ok line. ``--sweep delta_gate,patch`` runs only
 the named sweeps (of ``delta_gate``, ``vq_assign``, ``patch``,
-``gated_attention``).
+``gated_attention``, ``gated_attention_bwd``).
 """
 from __future__ import annotations
 
@@ -357,8 +361,8 @@ def timings(fn, kernel: str | None = None) -> dict:
     the call launches), or the event time when the trace holds none;
     ``call_ms``: CUDA-event time around one call, which includes the host's
     wrapper work when that is the longer. With ``kernel``, also
-    ``kernel_ms``: the device time of the kernels whose name holds it, and
-    ``kernels``: their names."""
+    ``kernel_ms``: the device time of the kernels whose name holds it,
+    ``kernels``: their names, and ``kernel_by_name``: each one's time."""
     call = time_ms(fn)
     by_name = device_ms(fn)
     out = dict(ms=sum(by_name.values()) if by_name else call, call_ms=call,
@@ -368,6 +372,7 @@ def timings(fn, kernel: str | None = None) -> dict:
                 for k, v in by_name.items() if kernel in k}
         out["kernel_ms"] = sum(mine.values()) or None
         out["kernels"] = sorted(mine)
+        out["kernel_by_name"] = mine
     return out
 
 
@@ -725,15 +730,19 @@ def attention_bwd_work(BH: int, n: int, dh: int = 64) -> tuple[int, int]:
 # of 12 heads, then [4, 1024], a ragged n, a short one and a single row
 BWD_ATTENTION = ((96, 1024), (48, 1024), (48, 1000), (48, 37), (48, 1))
 BWD_TOL = 1e-5  # dq, dk, dv against the plain version, relative to its max |.|
+# (BH, n) of ``--sweep gated_attention_bwd``: the train step's, then BH=48
+# over n, a ragged n = 1000 among them
+SWEEP_BWD = ((96, 1024),) + tuple((48, n) for n in (128, 256, 512, 1000, 1024, 2048))
 
 
 def check_gated_attention_bwd(mod, gen, n: int, BH: int = 48, dh: int = 64) -> dict:
     """``gated_attention_bwd_bh`` against ``gated_attention_bwd_ref`` on the
     card: each of dq, dk and dv within ``BWD_TOL`` of the plain version's
-    max |.|; device ms of the two kernels and the plain version's. The
-    kernels run on the FP32 cores (``cores``); ``bound_ms`` is the bound at
-    the f32 route's peak, 3xTF32 on the tensor cores as the forward's,
-    beside the FP32 cores' (``bound_fp32_ms``)."""
+    max |.|; device ms of the two kernels together (``ms``) and apart
+    (``dkv_ms``, ``dq_ms``), and the plain version's. The kernels run on
+    the tensor cores in 3xTF32 as the forward (``cores``); ``bound_ms`` is
+    the bound at that route's peak, beside the FP32 cores'
+    (``bound_fp32_ms``)."""
     dev = torch.device("cuda")
     q, k = (torch.randn((BH, n, dh), generator=gen, device=dev) * 0.5 for _ in range(2))
     v, do = (torch.randn((BH, n, dh), generator=gen, device=dev) for _ in range(2))
@@ -750,16 +759,48 @@ def check_gated_attention_bwd(mod, gen, n: int, BH: int = 48, dh: int = 64) -> d
     kernel = timings(lambda: mod.gated_attention_bwd_bh(q, k, v, do),
                      kernel="gated_attention_bwd")
     plain = timings(lambda: mod.gated_attention_bwd_ref(q, k, v, do))
+    part = lambda tag: sum(  # noqa: E731
+        ms for name, ms in kernel["kernel_by_name"].items() if tag in name) or None
     nbytes, flops = attention_bwd_work(BH, n, dh)
     bound_ms, bound_by = bound(nbytes, GA_PRODUCTS * flops, GA_PEAK)
     return dict(BH=BH, n=n, dh=dh, rel_err=rel_err, tolerance=BWD_TOL,
                 max_abs_err=max(abs_err.values()), ms=kernel["ms"],
                 kernel_ms=kernel["kernel_ms"], kernels=kernel["kernels"],
+                dkv_ms=part("_dkv_"), dq_ms=part("_dq_"),
                 call_ms=kernel["call_ms"], plain_ms=plain["ms"],
                 plain_call_ms=plain["call_ms"], timing=kernel["timing"],
-                cores="fp32", bound_ms=bound_ms, bound_by=bound_by,
+                cores=GA_CORES, bound_ms=bound_ms, bound_by=bound_by,
                 bound_fp32_ms=bound(nbytes, flops)[0],
                 bound_tc_3xtf32_ms=bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)[0])
+
+
+def sweep_gated_attention_bwd(mod, gen) -> None:
+    """``--sweep``: the ``gated_attention`` backward at each (BH, n) of
+    SWEEP_BWD, held to ``BWD_TOL`` as in the kernels phase; one JSON line
+    a shape."""
+    for BH, n in SWEEP_BWD:
+        emit("sweep", kernel="gated_attention_bwd",
+             **check_gated_attention_bwd(mod, gen, n, BH=BH))
+
+
+def bwd_kernel_entry(gabs: list[dict], launches: int) -> dict:
+    """The ``gated_attention_bwd`` entry of the kernels line, from the
+    kernels phase's checks ``gabs`` (the train step's BH=96, n=1024 shape
+    timed) and the train phase's backward ``launches``. It replaces no
+    Pallas entry (``gradient_of`` says what the reference differentiates),
+    so it carries no ``replaces``."""
+    gab = next(g for g in gabs if g["BH"] == 96 and g["n"] == 1024)
+    return dict(
+        name="gated_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/gated_attention_bwd.cu",
+        gradient_of="the reference differentiates plain JAX σ attention "
+                    "(src/repro/models/attention.py:114, USE_PALLAS_SIGMA = False)",
+        launches=launches, max_abs_err=max(g["max_abs_err"] for g in gabs),
+        max_rel_err=max(e for g in gabs for e in g["rel_err"].values()),
+        ms=gab["ms"], plain_ms=gab["plain_ms"], bound_ms=gab["bound_ms"],
+        bound_by=gab["bound_by"], library_ms=None, BH=96, n=1024, cores=gab["cores"],
+        dkv_ms=gab["dkv_ms"], dq_ms=gab["dq_ms"], bound_fp32_ms=gab["bound_fp32_ms"],
+        bound_tc_3xtf32_ms=gab["bound_tc_3xtf32_ms"])
 
 
 def check_incr_patch(mod, gen, C: int, B=4, n=1024, H=12, dh=64, Q=64):
@@ -3257,7 +3298,7 @@ def train_phase(cfg=None, teacher_cfg=None, steps: int = 8, b: int = 8, n: int =
     return out
 
 
-SWEEPS = ("delta_gate", "vq_assign", "patch", "gated_attention")
+SWEEPS = ("delta_gate", "vq_assign", "patch", "gated_attention", "gated_attention_bwd")
 
 
 def main() -> int:
@@ -3265,8 +3306,9 @@ def main() -> int:
     p.add_argument("--sweep", nargs="?", const=",".join(SWEEPS), metavar="NAMES",
                    help="after the build, only time delta_gate over r with each "
                         "launch shape forced, vq_assign over token counts with each "
-                        "schedule forced, fused_step and incr_patch over (B, n, C) "
-                        "and gated_attention over (BH, nq, nk); a comma list of "
+                        "schedule forced, fused_step and incr_patch over (B, n, C), "
+                        "gated_attention over (BH, nq, nk) and its backward over "
+                        "(BH, n); a comma list of "
                         f"{SWEEPS} picks some (no other phase, no ok line)")
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -3305,7 +3347,8 @@ def main() -> int:
         sweeps = dict(delta_gate=lambda g: sweep_delta_gate(ops, ref, g),
                       vq_assign=lambda g: sweep_vq_assign(vqk, g),
                       patch=lambda g: sweep_patch(ops, ref, ipk, g),
-                      gated_attention=lambda g: sweep_gated_attention(gak, g))
+                      gated_attention=lambda g: sweep_gated_attention(gak, g),
+                      gated_attention_bwd=lambda g: sweep_gated_attention_bwd(gak, g))
         for name in args.sweep.split(","):
             sweeps[name](torch.Generator(device="cuda").manual_seed(0))
         print(smi, flush=True)
@@ -3571,19 +3614,8 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None)
     # the backward: launches from the train phase's 8 full-size steps
-    gab = next(g for g in gabs if g["BH"] == 96 and g["n"] == 1024)
-    kernels.append(dict(
-        name="gated_attention_bwd", route="cuda",
-        source="src/repro_torch/csrc/gated_attention_bwd.cu",
-        replaces="src/repro/kernels/gated_attention/gated_attention.py:90",
-        gradient_of="the reference differentiates plain JAX σ attention "
-                    "(src/repro/models/attention.py:114, USE_PALLAS_SIGMA = False)",
-        launches=sum(v for k, v in trn["train"]["launches"].items() if "bwd" in k),
-        max_abs_err=max(g["max_abs_err"] for g in gabs),
-        max_rel_err=max(e for g in gabs for e in g["rel_err"].values()),
-        ms=gab["ms"], plain_ms=gab["plain_ms"], bound_ms=gab["bound_ms"],
-        bound_by=gab["bound_by"], library_ms=None, BH=96, n=1024, cores=gab["cores"],
-        bound_fp32_ms=gab["bound_fp32_ms"], bound_tc_3xtf32_ms=gab["bound_tc_3xtf32_ms"]))
+    kernels.append(bwd_kernel_entry(
+        gabs, sum(v for k, v in trn["train"]["launches"].items() if "bwd" in k)))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,10 +17,11 @@
 // cores, and, as three TF32 products each, 0.0391 ms at the tensor cores'
 // 495 TFLOP/s. q, k, v and O are 50.3 MB, 0.015 ms at 3.35 TB/s.
 //
-// The route: mma.sync.m16n8k8 TF32 products with FP32 accumulation, each
-// f32 operand x split as big = x rounded to TF32 (to nearest, ties away) and
-// small = x - big (exact; the tensor core reads its top 19 bits), each
-// product taken as small*big + big*small + big*big. That keeps ~21 bits of
+// The route (tf32_mma.cuh, shared with the backward): mma.sync.m16n8k8
+// TF32 products with FP32 accumulation, each f32 operand x split as big =
+// x rounded to TF32 (to nearest, ties away) and small = x - big (exact;
+// the tensor core reads its top 19 bits), each product taken as
+// small*big + big*small + big*big. That keeps ~21 bits of
 // the operands, enough for the reference's 1e-5 f32 bound, which one TF32
 // product (~11 bits) misses.
 //
@@ -105,6 +106,7 @@
 
 #include "common.cuh"
 #include "patch_tile.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -112,6 +114,8 @@ using repro_torch::gelu_tanh;
 using repro_torch::patch_tile::cp_async16;
 using repro_torch::patch_tile::cp_async_commit;
 using repro_torch::patch_tile::cp_async_wait;
+using repro_torch::tf32::mma;
+using repro_torch::tf32::split;
 
 constexpr int BQ = 64;              // query rows a CTA
 constexpr int JH = 4;               // 8-key groups a pass takes (S, then W v)
@@ -138,24 +142,6 @@ struct Shape {
 // q's A fragments held in registers (a one-element stand-in where q is staged)
 template <class S>
 using QRegs = float[S::Q_REGS ? S::DH / 8 : 1][4];
-
-// x as big + small TF32 operands: big rounded to TF32 (half an ulp added,
-// the 13 low bits cleared), small the exact rest (the MMA reads its top 19
-// bits).
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  const uint32_t b = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  big = b;
-  small = __float_as_uint(x - __uint_as_float(b));
-}
-
-// d += a b for one 16 x 8 x 8 TF32 tile (f32 accumulate).
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Keys k0 .. k0 + BK - 1 of k (all DH columns) and v (the CTA's DV
 // columns: vb points at the first) into one stage (zeros past nk).

@@ -9,7 +9,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 from repro_torch.kernels.gated_attention import gated_attention_ref  # noqa: E402
@@ -418,6 +419,48 @@ def test_gated_attention_bwd_bound_at_the_train_shape():
     assert by == "operations" and abs(ms - 0.195416) < 1e-5
     ms, by = cs.bound(nbytes, flops)
     assert by == "operations" and abs(ms - 0.481250) < 1e-5
+
+
+def test_bwd_sweep_holds_the_train_shape_and_a_ragged_n():
+    """``--sweep gated_attention_bwd`` times the VQ-OPT-125M train step's
+    shape (BH = 96: 8 x 12 heads, n = 1024), a ragged n (not a whole number
+    of 64-row tiles), a long one, and each BH = 48 shape of at least a
+    tile that the kernels phase checks."""
+    assert (96, 1024) in cs.SWEEP_BWD
+    assert any(n % 64 for _, n in cs.SWEEP_BWD)
+    assert max(n for _, n in cs.SWEEP_BWD) >= 2048
+    assert {n for BH, n in cs.BWD_ATTENTION if BH == 48 and n >= 64} <= {
+        n for BH, n in cs.SWEEP_BWD if BH == 48}
+    assert "gated_attention_bwd" in cs.SWEEPS
+
+
+def _bwd_check_row(BH, n, err):
+    nbytes, flops = cs.attention_bwd_work(BH, n)
+    bound_ms, by = cs.bound(nbytes, cs.GA_PRODUCTS * flops, cs.GA_PEAK)
+    return dict(BH=BH, n=n, max_abs_err=err, rel_err={"dq": err, "dk": err / 2, "dv": 0.0},
+                ms=1.0, plain_ms=4.0, dkv_ms=0.6, dq_ms=0.4, bound_ms=bound_ms, bound_by=by,
+                cores=cs.GA_CORES, bound_fp32_ms=cs.bound(nbytes, flops)[0],
+                bound_tc_3xtf32_ms=bound_ms)
+
+
+def test_bwd_kernel_entry_replaces_no_pallas_entry():
+    """The backward's entry of the kernels line: no ``replaces`` (it is the
+    gradient of the forward, which the reference takes from plain JAX), the
+    contract's keys, the train shape's numbers, the dK/dV and dQ split, and
+    the worst error over every checked shape."""
+    gabs = [_bwd_check_row(48, 1024, 3e-7), _bwd_check_row(96, 1024, 2e-7),
+            _bwd_check_row(48, 37, 5e-7)]
+    entry = cs.bwd_kernel_entry(gabs, launches=192)
+    assert "replaces" not in entry and "plain JAX" in entry["gradient_of"]
+    contract = {"name", "route", "source", "launches", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms"}
+    assert contract <= set(entry)
+    assert (entry["name"], entry["route"]) == ("gated_attention_bwd", "cuda")
+    assert (ROOT / entry["source"]).is_file()
+    assert entry["launches"] == 192 and entry["library_ms"] is None
+    assert entry["max_abs_err"] == 5e-7 and entry["max_rel_err"] == 5e-7
+    assert entry["bound_ms"] == gabs[1]["bound_ms"] and entry["bound_by"] == "operations"
+    assert (entry["dkv_ms"], entry["dq_ms"], entry["cores"]) == (0.6, 0.4, cs.GA_CORES)
 
 
 @pytest.mark.parametrize("flips,draws", [((1, 0), 2), ((2, 1, 3), None)])

@@ -487,6 +487,11 @@ def _bwd_inputs(dev, BH, n, seed=None, amp=1.0):
     (3, 65, 1),    # one row past a tile
     (3, 129, 1),   # three tiles, the last of one row
     (8, 300, 3),   # |s| up to ~10: the GELU's tail and its derivative's
+    (3, 31, 1),    # one pass (32 rows) less a row
+    (3, 32, 1),    # one pass
+    (3, 33, 1),    # a pass and a row: the second pass of the diagonal tile
+    (3, 97, 1),    # a tile and a pass and a row
+    (5, 129, 3),   # two tiles and a row, the GELU's tail
 ])
 def test_gated_attention_bwd_kernel_matches_plain(dev, BH, n, amp):
     """dq, dk and dv of the two backward kernels within chip_smoke's

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch/`` nor
-``chip_smoke.py`` imports jax, jaxlib or the JAX package ``repro``, and the
-port's entry points default to the GPU without falling back to the CPU."""
+"""The port stands alone: no module of ``src/repro_torch/``, nor
+``chip_smoke.py`` or the kernel timing tool, imports jax, jaxlib or the JAX
+package ``repro``, and the port's entry points default to the GPU without
+falling back to the CPU."""
 import ast
 from pathlib import Path
 
@@ -14,7 +15,7 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "tools" / "time_bwd_variants.py"]
 
 
 def _imported_roots(tree):
