@@ -34,11 +34,13 @@ and exits non-zero):
                 bound at its route's peak, 3xTF32 on the tensor cores,
                 beside the FP32 cores'), the ``gated_attention`` backward
                 (``BWD_ATTENTION``: BH=96 and 48 at n=1024, BH=48 at n in
-                {1000, 37, 1}, dh=64; dq, dk and dv each within 1e-5 of
-                the plain version's max |.|; the dK/dV and dQ kernels'
-                device ms apart; its bound, 5 products a causal pair, at
-                the 3xTF32 route's peak, on which it runs, beside the FP32
-                cores')
+                {1000, 37, 1}, dh=64; ``BWD_FAMILIES``: phase 20's
+                dh=128 at BH=24 and dh=256 at BH=16, n in {4096, 1000},
+                and hymba's BH=25, n=4096, dh=64; dq, dk and dv each
+                within 1e-5 of the plain version's max |.|; the dK/dV and
+                dQ kernels' device ms apart; its bound, 5 products a causal
+                pair, at the 3xTF32 route's peak, on which it runs, beside
+                the FP32 cores')
                 and ``incr_patch`` (B=4, n=1024, H=12, C in
                 {8, 72, 264}, and 1x1024x1032, the most served step; within
                 1e-4, all-masked rows exactly 0).
@@ -236,6 +238,29 @@ and exits non-zero):
                 ``BatchServer`` serving a 256-token document from them
                 gives logits bitwise equal to one serving the weights in
                 memory.
+20. family_train — every family's training (``family_train_phase``).
+                ``card_vs_cpu_step`` (b=2) on the smoke configs with VQT of
+                deepseek-v2 and -v3 (MLA, MoE, v3's MTP loss; routes may
+                differ only at a near tie, k-th and (k+1)-th router
+                probabilities within 1e-5, and a draw with one is drawn
+                again), hymba, rwkv6 (no VQ), phi4-mini with its heads
+                widened to 128 and gemma3 to 256 (past its 64-token
+                window, n=96), so the wide backward kernels run: the loss
+                within 1e-5 and every gradient leaf within 1e-4 of its
+                max. Then five models at full width, weights drawn on the
+                card from seed 0 (``FAMILY_TRAIN``): hymba-1.5b VQT (full
+                depth), phi4-mini-3.8B VQT (cut 32 -> 12), gemma3-12b VQT
+                (cut 48 -> 6, one global layer at dh=256), rwkv6-7b (cut
+                32 -> 4), deepseek-v2-236b VQT (cut 60 -> 1, its dense MLA
+                layer), each through ``make_train_step`` with remat for 3
+                steps at [1, 4096] of ``SyntheticCorpus(seed=0)``, lr 6e-4,
+                warmup 1: every loss and grad norm finite, every small
+                parameter leaf moved, 2 ``gated_attention`` launches and
+                one of each backward kernel a step a σ layer without a
+                window; the loss over the steps, ms a step and tokens/s
+                over steps 2-3, peak memory, the launches by shape, one
+                more step profiled (device busy and idle, the top
+                kernels). Each model is freed before the next.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line
 (``delta_gate`` at the threshold phase's most served r), and the last line
@@ -249,7 +274,8 @@ kernels line come from the path that runs each kernel (serve for
 ``hymba`` and ``vq_assign``'s ``dv800`` from the recurrent phase's hymba
 forward, ``vq_assign``'s ``dv8192`` from the moe phase's deepseek-v2
 forward, ``gated_attention_bwd`` (both backward kernels) from the train
-phase's 8 full-size steps),
+phase's 8 full-size steps, and its ``head_dims`` (dh 64, 128 and 256 at
+n=4096) from the family_train phase's steps),
 with the counters set to 0 just before that path; launches made to compare
 or time a kernel do not count. Exits non-zero without a GPU
 and outside a checkout of the repo.
@@ -269,7 +295,8 @@ BH=48 at (nq, nk) = (1024, 512) and (512, 1024) (dh=64), and dh=128 at
 BH=24 x n in {4096, 1000}, dh=256 at BH=16 x n in {3072, 1000} and dh=64
 at hymba's BH=25 x n in {4096, 1000}, with both bounds, and the
 ``gated_attention`` backward at ``SWEEP_BWD`` (the train step's BH=96 x
-n=1024, BH=48 x n in {128, 256, 512, 1000, 1024, 2048}), each held to
+n=1024, BH=48 x n in {128, 256, 512, 1000, 1024, 2048}, and
+``BWD_FAMILIES``), each held to
 ``BWD_TOL``, the dK/dV and dQ kernels' device ms apart; one
 line a shape, and prints no ok line. ``--sweep delta_gate,patch`` runs only
 the named sweeps (of ``delta_gate``, ``vq_assign``, ``patch``,
@@ -729,10 +756,16 @@ def attention_bwd_work(BH: int, n: int, dh: int = 64) -> tuple[int, int]:
 # (BH, n) of the backward's checks: the VQ-OPT train step's [8, 1024] batch
 # of 12 heads, then [4, 1024], a ragged n, a short one and a single row
 BWD_ATTENTION = ((96, 1024), (48, 1024), (48, 1000), (48, 37), (48, 1))
+# (BH, n, dh) of the families' train steps (phase 20): phi4-mini's 24 heads
+# of 128 and gemma3's global layer's 16 of 256 (GQA repeated by the
+# wrapper), each also at a ragged n = 1000, and hymba's 25 heads of 64
+BWD_FAMILIES = ((24, 4096, 128), (24, 1000, 128), (16, 4096, 256), (16, 1000, 256),
+                (25, 4096, 64))
 BWD_TOL = 1e-5  # dq, dk, dv against the plain version, relative to its max |.|
-# (BH, n) of ``--sweep gated_attention_bwd``: the train step's, then BH=48
-# over n, a ragged n = 1000 among them
-SWEEP_BWD = ((96, 1024),) + tuple((48, n) for n in (128, 256, 512, 1000, 1024, 2048))
+# (BH, n, dh) of ``--sweep gated_attention_bwd``: the train step's, then
+# BH=48 over n, a ragged n = 1000 among them (dh = 64), then the families'
+SWEEP_BWD = (((96, 1024, 64),) + tuple((48, n, 64) for n in (128, 256, 512, 1000, 1024, 2048))
+             + BWD_FAMILIES)
 
 
 def check_gated_attention_bwd(mod, gen, n: int, BH: int = 48, dh: int = 64) -> dict:
@@ -778,18 +811,27 @@ def sweep_gated_attention_bwd(mod, gen) -> None:
     """``--sweep``: the ``gated_attention`` backward at each (BH, n) of
     SWEEP_BWD, held to ``BWD_TOL`` as in the kernels phase; one JSON line
     a shape."""
-    for BH, n in SWEEP_BWD:
+    for BH, n, dh in SWEEP_BWD:
         emit("sweep", kernel="gated_attention_bwd",
-             **check_gated_attention_bwd(mod, gen, n, BH=BH))
+             **check_gated_attention_bwd(mod, gen, n, BH=BH, dh=dh))
 
 
-def bwd_kernel_entry(gabs: list[dict], launches: int) -> dict:
+def bwd_kernel_entry(gabs: list[dict], launches: int, head_dims: dict | None = None) -> dict:
     """The ``gated_attention_bwd`` entry of the kernels line, from the
     kernels phase's checks ``gabs`` (the train step's BH=96, n=1024 shape
-    timed) and the train phase's backward ``launches``. It replaces no
-    Pallas entry (``gradient_of`` says what the reference differentiates),
-    so it carries no ``replaces``."""
+    timed) and the train phase's backward ``launches``; with ``head_dims``
+    ({dh: launches of phase 20's train steps}) also a row a family shape of
+    ``BWD_FAMILIES`` at n = 4096 (``head_dims``: times, both bounds, the
+    dK/dV and dQ kernels apart). It replaces no Pallas entry
+    (``gradient_of`` says what the reference differentiates), so it carries
+    no ``replaces``."""
     gab = next(g for g in gabs if g["BH"] == 96 and g["n"] == 1024)
+    rows = [dict(dh=g["dh"], BH=g["BH"], n=g["n"], launches=(head_dims or {}).get(g["dh"], 0),
+                 max_abs_err=g["max_abs_err"], max_rel_err=max(g["rel_err"].values()),
+                 ms=g["ms"], dkv_ms=g["dkv_ms"], dq_ms=g["dq_ms"], plain_ms=g["plain_ms"],
+                 bound_ms=g["bound_ms"], bound_by=g["bound_by"],
+                 bound_fp32_ms=g["bound_fp32_ms"], library_ms=None)
+            for g in gabs if (g["BH"], g["n"], g["dh"]) in BWD_FAMILIES and g["n"] == 4096]
     return dict(
         name="gated_attention_bwd", route="cuda",
         source="src/repro_torch/csrc/gated_attention_bwd.cu",
@@ -800,7 +842,7 @@ def bwd_kernel_entry(gabs: list[dict], launches: int) -> dict:
         ms=gab["ms"], plain_ms=gab["plain_ms"], bound_ms=gab["bound_ms"],
         bound_by=gab["bound_by"], library_ms=None, BH=96, n=1024, cores=gab["cores"],
         dkv_ms=gab["dkv_ms"], dq_ms=gab["dq_ms"], bound_fp32_ms=gab["bound_fp32_ms"],
-        bound_tc_3xtf32_ms=gab["bound_tc_3xtf32_ms"])
+        bound_tc_3xtf32_ms=gab["bound_tc_3xtf32_ms"], head_dims=rows)
 
 
 def check_incr_patch(mod, gen, C: int, B=4, n=1024, H=12, dh=64, Q=64):
@@ -1046,7 +1088,10 @@ def sass_md5(build_dir: Path) -> dict | None:
     """{library: {kernel function: md5 of its SASS}} of the built libraries
     (``cuobjdump -sass``), so two builds of a shared source can show that a
     kernel's machine code did not change; None without cuobjdump. The
-    anonymous namespace's per-file tag is cut from the names."""
+    anonymous namespace's per-file tag is cut from the names, and each
+    instruction line's runs of blanks are taken as one: cuobjdump pads its
+    columns to the widest line of the library, so a kernel added beside
+    another would change the other's hash."""
     import hashlib
     import re
 
@@ -1066,7 +1111,7 @@ def sass_md5(build_dir: Path) -> dict | None:
                               line.split("Function :")[1].strip())
                 funcs[name] = hashlib.md5()
             elif name and line.strip().startswith("/*"):
-                funcs[name].update(line.strip().encode())
+                funcs[name].update(" ".join(line.split()).encode())
         out[lib.stem.removeprefix("lib")] = {k: h.hexdigest() for k, h in funcs.items()}
     return out
 
@@ -3107,14 +3152,16 @@ def card_vs_cpu_step(cfg, b: int, n: int, seed: int = 0, device=None) -> dict:
     """One train step's loss and gradients (``training.step.lm_loss``
     through ``value_and_grad``, remat on) on ``device`` against the same on
     the CPU through the plain versions: the same weights (drawn on the
-    CPU from ``seed``), the same ``SyntheticCorpus`` batch [b, n] with
-    sampled positions, the same Gumbel noise for every layer. VQ codes may
-    differ only where the top two Gumbel logits lie within ``TRAIN_TIE``
-    (``first_layer_flips``). A draw of noise in which a code flipped at a
-    near tie is drawn again, up to ``TRAIN_DRAWS`` draws in all; on the
-    first draw with no flip the loss must lie within ``TRAIN_LOSS_TOL`` and
-    every gradient leaf within ``TRAIN_GRAD_TOL`` of its max. Raises when
-    every draw flipped."""
+    CPU from ``seed``), the same ``SyntheticCorpus`` batch [b, n] (sampled
+    positions where the config samples them), the same Gumbel noise for
+    every layer (none without VQT). VQ codes may differ only where the top
+    two Gumbel logits lie within ``TRAIN_TIE`` (``first_layer_flips``), MoE
+    routes only where the k-th and (k+1)-th router probabilities lie within
+    ``ROUTE_TIE`` (``route_flips``). A draw of noise in which a code or a
+    route flipped at a near tie is drawn again, up to ``TRAIN_DRAWS`` draws
+    in all; on the first draw with no flip the loss must lie within
+    ``TRAIN_LOSS_TOL`` and every gradient leaf within ``TRAIN_GRAD_TOL`` of
+    its max. Raises when every draw flipped."""
     from repro_torch.common.pytree import path_names, tree_flatten_with_path
     from repro_torch.core import vq as vq_mod
     from repro_torch.data import SyntheticCorpus, lm_batches
@@ -3127,37 +3174,46 @@ def card_vs_cpu_step(cfg, b: int, n: int, seed: int = 0, device=None) -> dict:
     batch = next(lm_batches(SyntheticCorpus(vocab=cfg.vocab, seed=0), batch=b, seq_len=n,
                             steps=1, pos_pool=cfg.pos_pool if cfg.pos == "sampled" else None))
     L = n_layers(cfg)
+    n_vq = 0 if cfg.vqt is None else sum(layer.mixer != "rwkv6" for layer in cfg.layer_list())
+    n_moe = sum(layer.ffn == "moe" for layer in cfg.layer_list())
     _, launches = launch_counters()
-    ties, flips = [], []
+    ties, flips, route_tie, route_flip = [], [], [], []
     for draw in range(TRAIN_DRAWS):
         gen = torch.Generator().manual_seed(seed + 1 + draw)
-        noise = [vq_mod.gumbel(gen, (b, n, cfg.vqt.n_heads, cfg.vqt.codebook_size))
-                 for _ in range(L)]
+        noise = None if cfg.vqt is None else [
+            vq_mod.gumbel(gen, (b, n, cfg.vqt.n_heads, cfg.vqt.codebook_size)) for _ in range(L)]
         runs = []
         for dev, params in ((torch.device("cpu"), cpu), (torch.device(device), card)):
             bt = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
             reset_launches()
             sync(dev)
             t0 = time.perf_counter()
-            with recorded_vq_train() as calls:
-                loss, _, grads = value_and_grad(lm_loss, params, cfg, bt, None,
-                                                vq_noise=[x.to(dev) for x in noise])
+            with recorded_vq_train() as calls, recorded_routes() as routes:
+                loss, _, grads = value_and_grad(
+                    lm_loss, params, cfg, bt, None,
+                    vq_noise=None if noise is None else [x.to(dev) for x in noise])
             sync(dev)
             runs.append(dict(loss=float(loss), grads=tree_flatten_with_path(grads),
-                             calls=calls[:L], seconds=time.perf_counter() - t0,
+                             calls=calls[:n_vq],  # the forward's (a remat recompute follows)
+                             routes=[(i.cpu(), g.cpu()) for i, g in routes[:n_moe]],
+                             seconds=time.perf_counter() - t0,
                              launches={k: v for k, v in launches().items() if v}))
         cpu_run, card_run = runs
-        diff = torch.stack([a["idx"] != c["idx"]  # [L, b, n, hq], as the gaps
-                            for a, c in zip(cpu_run["calls"], card_run["calls"])])
         ties.append(sum(int(((a["gap"] <= TRAIN_TIE) | (c["gap"] <= TRAIN_TIE)).sum())
                         for a, c in zip(cpu_run["calls"], card_run["calls"])))
         flips.append(first_layer_flips(
-            diff, lambda li: (r["calls"][li]["gap"] for r in runs), TRAIN_TIE, "train step"))
-        if not flips[-1]:
+            torch.stack([a["idx"] != c["idx"]  # [n_vq, b, n, hq], as the gaps
+                         for a, c in zip(cpu_run["calls"], card_run["calls"])]),
+            lambda li: (r["calls"][li]["gap"] for r in runs), TRAIN_TIE, "train step")
+            if n_vq else 0)
+        route_tie.append(route_ties(cpu_run["routes"] + card_run["routes"]))
+        route_flip.append(int(route_flips(cpu_run["routes"], card_run["routes"], n_moe,
+                                          "train step").sum()) if n_moe else 0)
+        if not flips[-1] and not route_flip[-1]:
             break
     else:
-        raise AssertionError(f"train step: a VQ code flipped at a near tie in each of "
-                             f"{TRAIN_DRAWS} draws of noise ({flips} flips)")
+        raise AssertionError(f"train step: a VQ code or a route flipped at a near tie in each "
+                             f"of {TRAIN_DRAWS} draws of noise ({flips}, {route_flip} flips)")
     loss_diff = abs(card_run["loss"] - cpu_run["loss"])
     if loss_diff > TRAIN_LOSS_TOL * max(1.0, abs(cpu_run["loss"])):
         raise AssertionError(f"train step: the card's loss {card_run['loss']} differs from "
@@ -3174,7 +3230,8 @@ def card_vs_cpu_step(cfg, b: int, n: int, seed: int = 0, device=None) -> dict:
                 loss_diff=loss_diff, loss_tolerance=TRAIN_LOSS_TOL,
                 grad_max_rel_err=grad_err[worst], grad_worst_leaf=worst,
                 grad_tolerance=TRAIN_GRAD_TOL, noise_draws=len(flips), near_ties=ties,
-                near_tie_flips=flips, seconds_card=card_run["seconds"],
+                near_tie_flips=flips, route_near_ties=route_tie, route_flips=route_flip,
+                seconds_card=card_run["seconds"],
                 seconds_cpu=cpu_run["seconds"], launches=card_run["launches"])
 
 
@@ -3298,6 +3355,186 @@ def train_phase(cfg=None, teacher_cfg=None, steps: int = 8, b: int = 8, n: int =
     return out
 
 
+# phase 20's models: (arch, depth the full-width config is cut to, None for
+# full depth). A step holds the parameters, their gradients and the old and
+# new AdamW moments and parameters (28 B a parameter) plus the activations
+# of the logits: phi4-mini at 32 layers (4.46 B parameters) or 16 would
+# need more than the card's 80 GB; gemma3 keeps one 5-local : 1-global
+# pattern (its global layer at dh = 256); rwkv6 4 layers, for the phase's
+# time; deepseek-v2 its dense MLA layer (an MoE layer adds 8 B parameters).
+FAMILY_TRAIN = (("hymba-1.5b", None), ("phi4-mini-3.8b", 12), ("gemma3-12b", 6),
+                ("rwkv6-7b", 4), ("deepseek-v2-236b", 1))
+# phase 20's card-against-CPU steps: (arch, head dim the smoke config's
+# heads are widened to, None to keep them, tokens): phi4-mini's and
+# gemma3's full head dims, so the card's wide backward kernels run; gemma3
+# past its 64-token smoke window
+FAMILY_TRAIN_CHECK = (("deepseek-v2-236b", None, 64), ("deepseek-v3-671b", None, 64),
+                      ("hymba-1.5b", None, 64), ("rwkv6-7b", None, 64),
+                      ("phi4-mini-3.8b", 128, 64), ("gemma3-12b", 256, 96))
+
+
+@contextlib.contextmanager
+def gated_attention_census():
+    """Count the ``gated_attention`` forward and backward calls (a launch of
+    the forward kernel, or of the dK/dV and the dQ kernel, on the card) by
+    "BHxnxdh" while the block runs. Yields {"forward": {...}, "backward":
+    {...}}."""
+    from repro_torch.kernels.gated_attention import ops
+
+    census = {"forward": {}, "backward": {}}
+    fwd, bwd = ops._forward_bh, ops.gated_attention_bwd_bh
+
+    def count(kind, q):
+        key = "x".join(str(s) for s in q.shape)
+        census[kind][key] = census[kind].get(key, 0) + 1
+
+    def counted_fwd(q, k, v):
+        count("forward", q)
+        return fwd(q, k, v)
+
+    def counted_bwd(q, k, v, do):
+        count("backward", q)
+        return bwd(q, k, v, do)
+
+    with mock.patch.object(ops, "_forward_bh", counted_fwd), \
+            mock.patch.object(ops, "gated_attention_bwd_bh", counted_bwd):
+        yield census
+
+
+def family_train_cfg(arch: str, depth: int | None):
+    """``arch``'s full-width config with VQT (where it applies), its first
+    stage's pattern repeated to ``depth`` layers (None: full depth)."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch, vqt=True)
+    if depth is None:
+        return full
+    pattern = full.stages[0][0]
+    return dataclasses.replace(full, n_layers=depth,
+                               stages=((pattern, depth // len(pattern)),)).validate()
+
+
+def sigma_layers(cfg) -> int:
+    """Layers whose attention runs ``gated_attention``: σ, no window."""
+    return 0 if cfg.attn_softmax else sum(
+        layer.mixer in ("gqa", "hymba") and layer.window is None for layer in cfg.layer_list())
+
+
+def family_train(cfg, steps: int = 3, n: int = 4096, lr: float = 6e-4, device=None) -> dict:
+    """``cfg`` from seed 0 (weights drawn on ``device``'s generator) through
+    ``make_train_step`` with remat: ``steps`` steps at [1, n] of
+    ``SyntheticCorpus(seed=0)``, lr ``lr``, warmup 1 — every loss and grad
+    norm finite, every small parameter leaf moved, 2 ``gated_attention``
+    launches a step a σ layer without a window (the forward and its
+    recompute) and one of each backward kernel; ms a step and tokens/s over
+    steps 2.., peak memory (the state included); the launches by shape; one
+    more step profiled."""
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.data import SyntheticCorpus, lm_batches
+    from repro_torch.training import make_schedule, make_train_step, train_state_init
+
+    device = torch.device(device or DEVICE)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    laps, lap = stopwatch()
+    st = train_state_init(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                          device=device)
+    leaves = tree_leaves(st.params)
+    small = [i for i, p in enumerate(leaves) if p.numel() <= 1 << 16]
+    before = [leaves[i].clone() for i in small]
+    del leaves
+    step = make_train_step(cfg, make_schedule(peak_lr=lr, warmup_steps=1, total_steps=steps))
+    batches = list(lm_batches(SyntheticCorpus(vocab=cfg.vocab, seed=0), batch=1, seq_len=n,
+                              steps=steps + 1,
+                              pos_pool=cfg.pos_pool if cfg.pos == "sampled" else None))
+    lap("init")
+    _, launches = launch_counters()
+    reset_launches()
+    losses, aux, gnorms, ms = [], [], [], []
+    with gated_attention_census() as census:
+        for batch in batches[:steps]:
+            sync(device)
+            t0 = time.perf_counter()
+            st, m = step(st, batch)
+            sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["lm_loss"]))
+            aux.append(float(m["aux_loss"]))
+            gnorms.append(float(m["grad_norm"]))
+    counts = {k: v for k, v in launches().items() if v}
+    lap("train")
+    if not all(np.isfinite(losses + aux + gnorms)):
+        raise AssertionError(f"{cfg.name}: a loss or grad norm is not finite: {losses} "
+                             f"{aux} {gnorms}")
+    leaves = tree_leaves(st.params)
+    still = sum(torch.equal(leaves[i], b) for i, b in zip(small, before))
+    if still:
+        raise AssertionError(f"{cfg.name}: {still} of {len(small)} small leaves did not move")
+    S = sigma_layers(cfg)
+    want = {k: v for k, v in {"gated_attention": 2 * S * steps,
+                              "gated_attention_bwd_dkv": S * steps,
+                              "gated_attention_bwd_dq": S * steps}.items() if v}
+    got = {k: v for k, v in counts.items() if k.startswith("gated_attention")}
+    if got != want:
+        raise AssertionError(f"{cfg.name}: launches {got}, expected {want}")
+    step_ms = float(np.mean(ms[1:])) if len(ms) > 1 else ms[0]
+    out = dict(layers=n_layers(cfg), parameters=sum(p.numel() for p in leaves), n=n,
+               steps=steps, lr=lr, lm_loss=losses, aux_loss=aux, grad_norm=gnorms,
+               step_ms=ms, ms_per_step=step_ms, tokens_per_s=n / (step_ms / 1e3),
+               launches=counts, launches_per_step={k: v / steps for k, v in counts.items()},
+               gated_attention_per_step={kind: {k: v / steps for k, v in c.items()}
+                                         for kind, c in census.items()},
+               peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None)
+    del leaves
+    if on_card:
+        prof = profiled(lambda: step(st, batches[steps]),
+                        ("gated_attention_kernel", "gated_attention_bwd"), top=8)
+        out["profile"] = {k: prof[k] for k in ("wall_ms_profiled", "device_busy_ms",
+                                               "device_idle_share", "device_launches",
+                                               "kernels", "top_kernels")}
+    lap("profile")
+    out["laps_s"] = laps
+    return out
+
+
+def family_train_phase(models=None, checks=None, steps: int = 3, n: int = 4096,
+                       check_b: int = 2, device=None) -> dict:
+    """Phase 20: training of every family. (1) ``card_vs_cpu_step`` on the
+    smoke configs of ``checks`` ((name, config) pairs; default
+    ``FAMILY_TRAIN_CHECK``, each with VQT where it applies); (2)
+    ``family_train`` on each of ``models`` ((name, config) pairs; default
+    ``FAMILY_TRAIN`` at full width), each model freed before the next.
+    Also sums each model's backward launches by head dim."""
+    from repro_torch.configs import get_config
+
+    device = device or DEVICE
+    if checks is None:
+        checks = []
+        for arch, dh, cn in FAMILY_TRAIN_CHECK:
+            cfg = get_config(arch, smoke=True, vqt=True)
+            if dh is not None:
+                cfg = dataclasses.replace(cfg, head_dim=dh)
+            checks.append((f"{arch}-dh{cfg.resolved_head_dim}", cfg, cn))
+    if models is None:
+        models = [(arch, family_train_cfg(arch, depth)) for arch, depth in FAMILY_TRAIN]
+    out = {"card_vs_cpu": {}, "models": {}, "bwd_launches_by_head_dim": {}}
+    for name, cfg, cn in checks:
+        out["card_vs_cpu"][name] = card_vs_cpu_step(cfg, check_b, cn, device=device)
+    for name, cfg in models:
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        res = family_train(cfg, steps=steps, n=n, device=device)
+        out["models"][name] = res
+        dh = cfg.resolved_head_dim
+        if res["launches"].get("gated_attention_bwd_dkv"):
+            by_dh = out["bwd_launches_by_head_dim"]
+            by_dh[dh] = by_dh.get(dh, 0) + sum(
+                v for k, v in res["launches"].items() if "bwd" in k)
+    return out
+
+
 SWEEPS = ("delta_gate", "vq_assign", "patch", "gated_attention", "gated_attention_bwd")
 
 
@@ -3368,6 +3605,7 @@ def main() -> int:
     gas += [check_gated_attention(gak, gen, nq, nk, BH=BH, dh=dh)
             for BH, nq, nk, dh in WIDE_ATTENTION + HYMBA_ATTENTION]
     gabs = [check_gated_attention_bwd(gak, gen, n, BH=BH) for BH, n in BWD_ATTENTION]
+    gabs += [check_gated_attention_bwd(gak, gen, n, BH=BH, dh=dh) for BH, n, dh in BWD_FAMILIES]
     ips = [check_incr_patch(ipk, gen, C) for C in (8, 72, 264)]
     ips.append(check_incr_patch(ipk, gen, 1032, B=1))  # the most served step
     emit("kernels", seconds=time.perf_counter() - t0, fused_step=fused,
@@ -3548,6 +3786,13 @@ def main() -> int:
     trn = train_phase()
     emit("train", seconds=time.perf_counter() - t0, nvidia_smi=smi, **trn)
 
+    # ---- 20. family_train: every family's training, five at full width
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ftr = family_train_phase()
+    emit("family_train", seconds=time.perf_counter() - t0, nvidia_smi=smi, **ftr)
+
     # ---- summary
     c72 = next(f for f in fused if f["C"] == 72 and f["mask"] == "random")
     r_top = max(gate_rows, key=gate_rows.get)  # the most served r
@@ -3613,9 +3858,11 @@ def main() -> int:
             N=N, launches=launches,
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None)
-    # the backward: launches from the train phase's 8 full-size steps
+    # the backward: launches from the train phase's 8 full-size steps; by
+    # head dim from the family_train phase's steps
     kernels.append(bwd_kernel_entry(
-        gabs, sum(v for k, v in trn["train"]["launches"].items() if "bwd" in k)))
+        gabs, sum(v for k, v in trn["train"]["launches"].items() if "bwd" in k),
+        head_dims=ftr["bwd_launches_by_head_dim"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,7 @@
 // No TPU kernel has a backward: the reference trains by differentiating its
 // plain-JAX sigma attention (src/repro/models/attention.py: attention_core).
 // These kernels compute that gradient, for training's nq = nk = n and
-// dh = dv = 64. With c_i = i + 1, S = q k^T * scale, W = gelu_tanh(S) * mask
+// dh = dv = 64, and (the "wide heads" kernels below) 128 and 256. With c_i = i + 1, S = q k^T * scale, W = gelu_tanh(S) * mask
 // (key j <= query i) and dO' = dO / c:
 //   dV = W^T dO'       dW = dO' V^T       dS = dW * gelu_tanh'(S) * mask
 //   dQ = dS K * scale  dK = dS^T Q * scale
@@ -106,14 +106,30 @@
 // 0.4820 (dq to 0.2555, where S, then unused, goes too). mma.sync runs
 // TF32 at about half the rate that wgmma reaches (the forward's note).
 //
-// Wider heads (dh = 128, 256; ROADMAP Queue A item 10b) would need: the
-// accumulators grow with dh (dkv's dK and dV 2 x dh / 2 registers a
-// thread: 256 at dh = 256), so a CTA takes a slice of the output columns,
-// as the forward's dh = 256 path does (S^T over the whole dh, dV and dK for
-// 64 columns: a third grid axis, S^T recomputed once a slice), and the
-// streamed tiles (rows of dh + 8 floats, twice for the split) shrink to 32
-// rows, so the stage and the own tiles stay under 113 KB for two CTAs an
-// SM.
+// Wide heads (dh = D = 128, 256: the heads of phi4-mini and of gemma3's
+// global layers). The same two kernels, templated on D, with what D changes:
+// * Accumulators. dK and dV over all D columns would take 2 x D / 2
+//   registers a thread (256 at D = 256), so a CTA owns a slice of SL = 128
+//   output columns (a third grid axis: one slice at D = 128, two at 256)
+//   and S^T and dW^T, reduced over all D, are computed once a slice. With
+//   64-column slices, as the forward's chunks, the kernels recomputed S and
+//   dW 2 and 4 times; 128 columns cost dkv 92 B (D = 128) and 36 B
+//   (D = 256) of spills at 255 registers and take the BH = 24 / 16,
+//   n = 4096 calls from 13.61-13.69 / 35.96-36.14 ms to 8.05-8.13 /
+//   19.59-19.65 ms (tools/time_bwd_variants.py, A B B A in one call,
+//   NVIDIA H100 80GB HBM3, 700.00 W).
+// * Shared memory. The own two tiles keep all D columns (64 rows of
+//   D + 8 floats: 8 mod 32 banks, so the row order above still reads
+//   every bank once); the streamed tiles shrink to SR = 32 rows (D = 128)
+//   or 16 (D = 256), a pass being one streamed tile (SR / 8 groups):
+//   139,264 B and 202,752 B a CTA, one CTA (4 warps) an SM.
+// * Walks and masks. dK/dV walks the query tiles from the last down, as
+//   at dh = 64; a streamed tile of 16 or 32 rows meets a 64-row key tile's
+//   diagonal in 4 or 2 tiles, where groups wholly before a warp's first
+//   key (dkv) or after its last query (dq) are skipped and the rest
+//   masked.
+// The dh = 64 kernels' code is untouched: their SASS is the same as before
+// the wide kernels were added beside them (chip_smoke.py's sass_md5).
 //
 // Measured (chip_smoke.py from a git archive of this tree, NVIDIA H100
 // 80GB HBM3, 700.00 W; device ms; the FP32-core kernels these replace in
@@ -512,6 +528,343 @@ gated_attention_bwd_dq_kernel(const float* __restrict__ q,   // [BH, n, 64]
   }
 }
 
+// ---------------------------------------------------------------- wide heads
+// dh = D in {128, 256}: the same two kernels, templated on D, on SR, the
+// rows of a streamed tile (32 at D = 128, 16 at D = 256; a pass is one
+// streamed tile, SR / 8 groups), and on SL, the output columns a CTA
+// writes (blockIdx.z picks the slice); S and dW are reduced over the whole
+// D, once a slice.
+
+// Rows row0 .. row0 + R - 1 of a [n, D] matrix into a staged tile of
+// stride D + 8 (zeros past n).
+template <int D, int R>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int n,
+                                          int tid) {
+  constexpr int LDW = D + 8;
+#pragma unroll
+  for (int i = 0; i < R * D / 4 / THREADS; ++i) {
+    const int e = tid + i * THREADS;
+    const int r = e / (D / 4), c = 4 * (e % (D / 4));
+    const bool in = row0 + r < n;
+    cp_async16(dst + r * LDW + c, src + (size_t)(in ? row0 + r : 0) * D + c, in);
+  }
+}
+
+// split_stage for two streamed tiles of SR rows: small parts 2 SR (D + 8)
+// floats on.
+template <int D, int SR>
+__device__ __forceinline__ void split_rows(float* p, int tid) {
+  constexpr int LDW = D + 8, STR = SR * LDW;
+#pragma unroll
+  for (int i = 0; i < 2 * SR * D / 4 / THREADS; ++i) {
+    const int e = tid + i * THREADS;
+    const int m = e / (SR * D / 4), r = (e / (D / 4)) % SR, c = 4 * (e % (D / 4));
+    float* x = p + m * STR + r * LDW + c;
+    const float4 v = *reinterpret_cast<const float4*>(x);
+    uint4 big, sml;
+    split(v.x, big.x, sml.x);
+    split(v.y, big.y, sml.y);
+    split(v.z, big.z, sml.z);
+    split(v.w, big.w, sml.w);
+    *reinterpret_cast<uint4*>(x) = big;
+    *reinterpret_cast<uint4*>(x + 2 * STR) = sml;
+  }
+}
+
+template <int LDW>
+__device__ __forceinline__ void a_frag_w(const float* p, int ks, int g, int t,
+                                         uint32_t (&big)[4], uint32_t (&sml)[4]) {
+  const float2 lo = *reinterpret_cast<const float2*>(p + g * LDW + 8 * ks + 2 * t);
+  const float2 hi = *reinterpret_cast<const float2*>(p + (g + 8) * LDW + 8 * ks + 2 * t);
+  split(lo.x, big[0], sml[0]);
+  split(hi.x, big[1], sml[1]);
+  split(lo.y, big[2], sml[2]);
+  split(hi.y, big[3], sml[3]);
+}
+
+// kstep with P groups, stride LDW and the small part SM floats on.
+template <int P, int LDW, int SM, bool EDGE>
+__device__ __forceinline__ void kstep_w(float (&acc)[P][4], const uint32_t (&ab)[4],
+                                        const uint32_t (&as)[4], const float* p, int jlo,
+                                        int jhi) {
+  uint2 bb[P], bs[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    if (EDGE && (j < jlo || j > jhi)) continue;
+    bb[j] = ld2(p + 8 * j * LDW);
+    bs[j] = ld2(p + SM + 8 * j * LDW);
+  }
+#pragma unroll
+  for (int j = 0; j < P; ++j)
+    if (!EDGE || (j >= jlo && j <= jhi)) mma(acc[j], as, bb[j].x, bb[j].y);
+#pragma unroll
+  for (int j = 0; j < P; ++j)
+    if (!EDGE || (j >= jlo && j <= jhi)) mma(acc[j], ab, bs[j].x, bs[j].y);
+#pragma unroll
+  for (int j = 0; j < P; ++j)
+    if (!EDGE || (j >= jlo && j <= jhi)) mma(acc[j], ab, bb[j].x, bb[j].y);
+}
+
+// scores over the whole D: S's products, then dW's, each k-step.
+template <int D, int SR, bool EDGE>
+__device__ __forceinline__ void scores_w(float (&s)[SR / 8][4], float (&w)[SR / 8][4],
+                                         const float* X, const float* U, const float* Y,
+                                         const float* Z, int g, int t, int jlo, int jhi) {
+  constexpr int P = SR / 8, LDW = D + 8, SM = 2 * SR * LDW;
+#pragma unroll
+  for (int j = 0; j < P; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = w[j][e] = 0.0f;
+  const int br = b_row(g) * LDW + 2 * t;
+#pragma unroll 4
+  for (int ks = 0; ks < D / 8; ++ks) {
+    uint32_t ab[4], as[4];
+    a_frag_w<LDW>(X, ks, g, t, ab, as);
+    kstep_w<P, LDW, SM, EDGE>(s, ab, as, Y + br + 8 * ks, jlo, jhi);
+    a_frag_w<LDW>(U, ks, g, t, ab, as);
+    kstep_w<P, LDW, SM, EDGE>(w, ab, as, Z + br + 8 * ks, jlo, jhi);
+  }
+}
+
+// accumulate over one 8-row group into an SL-column slice: p points at the
+// group's first row, at the slice's first column.
+template <int LDW, int SM, int SL>
+__device__ __forceinline__ void accumulate_w(float (&acc)[SL / 8][4], const float (&c)[4],
+                                             const float* p, int g, int t) {
+  uint32_t ab[4], as[4];
+  c_as_a(c, ab, as);
+  const uint32_t* lo = reinterpret_cast<const uint32_t*>(p + lo_row(t) * LDW + g);
+  const uint32_t* hi = reinterpret_cast<const uint32_t*>(p + hi_row(t) * LDW + g);
+#pragma unroll
+  for (int n0 = 0; n0 < SL / 8; n0 += 4) {
+    uint32_t yb[4][2], ys[4][2];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      yb[n][0] = lo[8 * (n0 + n)];
+      yb[n][1] = hi[8 * (n0 + n)];
+      ys[n][0] = lo[SM + 8 * (n0 + n)];
+      ys[n][1] = hi[SM + 8 * (n0 + n)];
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) mma(acc[n0 + n], as, yb[n][0], yb[n][1]);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) mma(acc[n0 + n], ab, ys[n][0], ys[n][1]);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) mma(acc[n0 + n], ab, yb[n][0], yb[n][1]);
+  }
+}
+
+// One pass of the wide dkv: the warp's keys against the SR queries from
+// qp0; col0 the slice's first column.
+template <int D, int SR, int SL, bool DIAG>
+__device__ __forceinline__ void dkv_pass_w(float (&dk)[SL / 8][4],
+                                           float (&dv)[SL / 8][4], const float* sK,
+                                           const float* sV, const float* sQ, const float* sO,
+                                           int g, int t, int key0, int qp0, int jlo, int col0,
+                                           float scale) {
+  constexpr int P = SR / 8, LDW = D + 8, SM = 2 * SR * LDW;
+  float s[P][4], w[P][4];
+  scores_w<D, SR, DIAG>(s, w, sK, sV, sQ, sO, g, t, jlo, P - 1);
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    if (DIAG && j < jlo) continue;
+    const int qlo = qp0 + 8 * j + lo_row(t), qhi = qp0 + 8 * j + hi_row(t);
+    const float rc[2] = {1.0f / (float)(qlo + 1), 1.0f / (float)(qhi + 1)};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int query = (e & 1) ? qhi : qlo;
+      const int key = key0 + g + 8 * (e >> 1);
+      float gw, gd;
+      gelu_and_grad(s[j][e] * scale, gw, gd);
+      const bool live = !DIAG || key <= query;
+      s[j][e] = live ? gw * rc[e & 1] : 0.0f;
+      w[j][e] = live ? w[j][e] * rc[e & 1] * gd : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    if (DIAG && j < jlo) continue;
+    accumulate_w<LDW, SM, SL>(dv, s[j], sO + 8 * j * LDW + col0, g, t);
+    accumulate_w<LDW, SM, SL>(dk, w[j], sQ + 8 * j * LDW + col0, g, t);
+  }
+}
+
+// One pass of the wide dq: the warp's queries against the SR keys from kp0.
+template <int D, int SR, int SL, bool DIAG>
+__device__ __forceinline__ void dq_pass_w(float (&dq)[SL / 8][4], const float* sQ,
+                                          const float* sO, const float* sK, const float* sV,
+                                          int g, int t, int row0, int kp0, int jhi, int col0,
+                                          const float (&rc)[2], float scale) {
+  constexpr int P = SR / 8, LDW = D + 8, SM = 2 * SR * LDW;
+  float s[P][4], w[P][4];
+  scores_w<D, SR, DIAG>(s, w, sQ, sO, sK, sV, g, t, 0, jhi);
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    if (DIAG && j > jhi) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = kp0 + 8 * j + ((e & 1) ? hi_row(t) : lo_row(t));
+      const int row = row0 + g + 8 * (e >> 1);
+      float gw, gd;
+      gelu_and_grad(s[j][e] * scale, gw, gd);
+      const bool live = !DIAG || key <= row;
+      w[j][e] = live ? w[j][e] * rc[e >> 1] * gd : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    if (DIAG && j > jhi) continue;
+    accumulate_w<LDW, SM, SL>(dq, w[j], sK + 8 * j * LDW + col0, g, t);
+  }
+}
+
+template <int D, int SR>
+constexpr int wide_smem_bytes() {  // the own two tiles, the streamed two big and small
+  return (2 * BT + 4 * SR) * (D + 8) * (int)sizeof(float);
+}
+
+template <int D, int SR, int SL>
+__global__ void __launch_bounds__(THREADS, 1)
+gated_attention_bwd_dkv_wide_kernel(const float* __restrict__ q,   // [BH, n, D]
+                                    const float* __restrict__ k,
+                                    const float* __restrict__ v,
+                                    const float* __restrict__ dO,
+                                    float* __restrict__ dk,
+                                    float* __restrict__ dv, int n, float scale) {
+  constexpr int LDW = D + 8;
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;               // the CTA's 64 keys, all D columns
+  float* sV = sK + BT * LDW;
+  float* sQ = sV + BT * LDW;      // the streamed SR queries, split
+  float* sO = sQ + SR * LDW;
+  const size_t base = (size_t)blockIdx.x * n * D;
+  const int k0 = blockIdx.y * BT;  // key tile 0 (the most query tiles) first
+  const int col0 = SL * blockIdx.z;
+  const int tiles = (n + SR - 1) / SR;
+  const int tid = threadIdx.x, warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  load_rows<D, BT>(sK, k + base, k0, n, tid);
+  load_rows<D, BT>(sV, v + base, k0, n, tid);
+
+  float acc_k[SL / 8][4] = {}, acc_v[SL / 8][4] = {};
+  const float* wK = sK + 16 * warp * LDW;
+  const float* wV = sV + 16 * warp * LDW;
+  const int key0 = k0 + 16 * warp;
+  // the query tiles from the last down to the first at or past k0: the
+  // small terms first, as at dh = 64
+  for (int qt = tiles - 1; qt >= k0 / SR; --qt) {
+    const int q0 = qt * SR;
+    load_rows<D, SR>(sQ, q + base, q0, n, tid);
+    load_rows<D, SR>(sO, dO + base, q0, n, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    split_rows<D, SR>(sQ, tid);
+    __syncthreads();
+    if (q0 >= k0 + BT) {
+      dkv_pass_w<D, SR, SL, false>(acc_k, acc_v, wK, wV, sQ, sO, g, t, key0, q0, 0, col0, scale);
+    } else {  // groups wholly before the warp's first key are skipped
+      const int jlo = max((key0 - q0) / 8, 0);
+      if (jlo < SR / 8)
+        dkv_pass_w<D, SR, SL, true>(acc_k, acc_v, wK, wV, sQ, sO, g, t, key0, q0, jlo, col0,
+                                scale);
+    }
+    __syncthreads();  // the stage is free for the next tile
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + g + 8 * h;
+    if (key >= n) continue;
+    float* dkr = dk + base + (size_t)key * D + col0 + 2 * t;
+    float* dvr = dv + base + (size_t)key * D + col0 + 2 * t;
+#pragma unroll
+    for (int c = 0; c < SL / 8; ++c) {
+      *reinterpret_cast<float2*>(dkr + 8 * c) =
+          make_float2(acc_k[c][2 * h] * scale, acc_k[c][2 * h + 1] * scale);
+      *reinterpret_cast<float2*>(dvr + 8 * c) = make_float2(acc_v[c][2 * h], acc_v[c][2 * h + 1]);
+    }
+  }
+}
+
+template <int D, int SR, int SL>
+__global__ void __launch_bounds__(THREADS, 1)
+gated_attention_bwd_dq_wide_kernel(const float* __restrict__ q,   // [BH, n, D]
+                                   const float* __restrict__ k,
+                                   const float* __restrict__ v,
+                                   const float* __restrict__ dO,
+                                   float* __restrict__ dq, int n, float scale) {
+  constexpr int LDW = D + 8;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;               // the CTA's 64 queries, all D columns
+  float* sO = sQ + BT * LDW;      // their dO (not yet divided by c)
+  float* sK = sO + BT * LDW;      // the streamed SR keys, split
+  float* sV = sK + SR * LDW;
+  const size_t base = (size_t)blockIdx.x * n * D;
+  const int q0 = ((n + BT - 1) / BT - 1 - (int)blockIdx.y) * BT;  // the last tile first
+  const int col0 = SL * blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  load_rows<D, BT>(sQ, q + base, q0, n, tid);
+  load_rows<D, BT>(sO, dO + base, q0, n, tid);
+
+  const int row0 = q0 + 16 * warp;
+  const float rc[2] = {1.0f / (float)(row0 + g + 1), 1.0f / (float)(row0 + g + 9)};
+  float acc[SL / 8][4] = {};
+  const float* wQ = sQ + 16 * warp * LDW;
+  const float* wO = sO + 16 * warp * LDW;
+  // the key tiles from the first up to the CTA's last query
+  for (int k0 = 0; k0 < q0 + BT && k0 < n; k0 += SR) {
+    load_rows<D, SR>(sK, k + base, k0, n, tid);
+    load_rows<D, SR>(sV, v + base, k0, n, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    split_rows<D, SR>(sK, tid);
+    __syncthreads();
+    if (k0 + SR <= q0) {
+      dq_pass_w<D, SR, SL, false>(acc, wQ, wO, sK, sV, g, t, row0, k0, SR / 8 - 1, col0, rc, scale);
+    } else if (row0 + 15 >= k0) {  // groups wholly after the warp's last query are skipped
+      const int jhi = min((row0 + 15 - k0) / 8, SR / 8 - 1);
+      dq_pass_w<D, SR, SL, true>(acc, wQ, wO, sK, sV, g, t, row0, k0, jhi, col0, rc, scale);
+    }
+    __syncthreads();  // the stage is free for the next tile
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    if (row >= n) continue;
+    float* dqr = dq + base + (size_t)row * D + col0 + 2 * t;
+#pragma unroll
+    for (int c = 0; c < SL / 8; ++c)
+      *reinterpret_cast<float2*>(dqr + 8 * c) =
+          make_float2(acc[c][2 * h] * scale, acc[c][2 * h + 1] * scale);
+  }
+}
+
+template <int D, int SR, int SL>
+int launch_dkv_wide(const float* q, const float* k, const float* v, const float* dO, float* dk,
+                    float* dv, int BH, int n, float scale, cudaStream_t stream) {
+  constexpr int smem = wide_smem_bytes<D, SR>();
+  cudaError_t err = cudaFuncSetAttribute(gated_attention_bwd_dkv_wide_kernel<D, SR, SL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(BH, (n + BT - 1) / BT, D / SL);
+  gated_attention_bwd_dkv_wide_kernel<D, SR, SL><<<grid, THREADS, smem, stream>>>(
+      q, k, v, dO, dk, dv, n, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int SR, int SL>
+int launch_dq_wide(const float* q, const float* k, const float* v, const float* dO, float* dq,
+                   int BH, int n, float scale, cudaStream_t stream) {
+  constexpr int smem = wide_smem_bytes<D, SR>();
+  cudaError_t err = cudaFuncSetAttribute(gated_attention_bwd_dq_wide_kernel<D, SR, SL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(BH, (n + BT - 1) / BT, D / SL);
+  gated_attention_bwd_dq_wide_kernel<D, SR, SL><<<grid, THREADS, smem, stream>>>(
+      q, k, v, dO, dq, n, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dK and dV of the gradient (q, k, v, dO all [BH, n, 64]).
@@ -538,4 +891,24 @@ extern "C" int gated_attention_bwd_dq_launch(const float* q, const float* k, con
   gated_attention_bwd_dq_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(q, k, v, dO, dq, n,
                                                                        scale);
   return (int)cudaGetLastError();
+}
+
+// dK and dV at dh in {128, 256} (q, k, v, dO all [BH, n, dh]); any other dh
+// is refused with cudaErrorInvalidValue.
+extern "C" int gated_attention_bwd_wide_dkv_launch(const float* q, const float* k,
+                                                   const float* v, const float* dO, float* dk,
+                                                   float* dv, int BH, int n, int dh, float scale,
+                                                   cudaStream_t stream) {
+  if (dh == 128) return launch_dkv_wide<128, 32, 128>(q, k, v, dO, dk, dv, BH, n, scale, stream);
+  if (dh == 256) return launch_dkv_wide<256, 16, 128>(q, k, v, dO, dk, dv, BH, n, scale, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dQ at dh in {128, 256}.
+extern "C" int gated_attention_bwd_wide_dq_launch(const float* q, const float* k, const float* v,
+                                                  const float* dO, float* dq, int BH, int n,
+                                                  int dh, float scale, cudaStream_t stream) {
+  if (dh == 128) return launch_dq_wide<128, 32, 128>(q, k, v, dO, dq, BH, n, scale, stream);
+  if (dh == 256) return launch_dq_wide<256, 16, 128>(q, k, v, dO, dq, BH, n, scale, stream);
+  return (int)cudaErrorInvalidValue;
 }

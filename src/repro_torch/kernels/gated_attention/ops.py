@@ -11,8 +11,8 @@ over its repeats) and returns [b, n, H·dh], matching
 differentiable through a ``torch.autograd.Function`` that saves q, k and v
 (not the scores: the backward recomputes S). CPU tensors run the plain
 versions (``ref.py``: the forward and the written-out backward); CUDA
-tensors launch the kernels or raise. The backward kernel takes dh = 64 and
-nq = nk. ``LAUNCHES`` counts kernel launches.
+tensors launch the kernels or raise. The backward kernels take dh = dv in
+``BWD_HEAD_DIMS`` and nq = nk. ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from repro_torch.kernels.gated_attention.ref import gated_attention_bwd_ref, gat
 LAUNCHES = {"gated_attention": 0, "gated_attention_bwd_dkv": 0, "gated_attention_bwd_dq": 0}
 
 HEAD_DIMS = (64, 128, 256)  # the head dims (of q, k and v) the kernel is instantiated for
-BWD_HEAD_DIMS = (64,)  # the head dims the backward kernels take
+BWD_HEAD_DIMS = (64, 128, 256)  # the head dims the backward kernels take
 _MAX_BH = 65535  # batch-heads a launch takes
 # gated_attention_launch(q, k, v, o, BH, nq, nk, dh, scale, stream)
 ARGTYPES = [PTR] * 4 + [INT] * 4 + [FLOAT, PTR]
@@ -36,6 +36,11 @@ ARGTYPES = [PTR] * 4 + [INT] * 4 + [FLOAT, PTR]
 BWD_DKV_ARGTYPES = [PTR] * 6 + [INT] * 2 + [FLOAT, PTR]
 # gated_attention_bwd_dq_launch(q, k, v, do, dq, BH, n, scale, stream)
 BWD_DQ_ARGTYPES = [PTR] * 5 + [INT] * 2 + [FLOAT, PTR]
+# the dh = 128 and 256 launchers take dh after n:
+# gated_attention_bwd_wide_dkv_launch(q, k, v, do, dk, dv, BH, n, dh, scale, stream)
+BWD_WIDE_DKV_ARGTYPES = [PTR] * 6 + [INT] * 3 + [FLOAT, PTR]
+# gated_attention_bwd_wide_dq_launch(q, k, v, do, dq, BH, n, dh, scale, stream)
+BWD_WIDE_DQ_ARGTYPES = [PTR] * 5 + [INT] * 3 + [FLOAT, PTR]
 
 
 def reset_launches() -> None:
@@ -79,9 +84,10 @@ def gated_attention_bwd_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           do: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of ``gated_attention_bh`` at (q, k, v) for the output's
     gradient ``do``: (dq, dk, dv), each the shape of its input. q, k, v, do:
-    [BH, n, 64] (training's nq = nk). CPU tensors run
-    ``gated_attention_bwd_ref``; CUDA tensors launch the dK/dV kernel, then
-    the dQ kernel (no atomics: two calls give the same bits)."""
+    [BH, n, dh], dh in ``BWD_HEAD_DIMS`` (training's nq = nk). CPU tensors
+    run ``gated_attention_bwd_ref``; CUDA tensors launch the dK/dV kernel,
+    then the dQ kernel (no atomics: two calls give the same bits); dh = 128
+    and 256 have kernels of their own."""
     if q.device.type == "cpu":
         return gated_attention_bwd_ref(q, k, v, do)
     require_cuda("gated_attention_bwd", q)
@@ -90,9 +96,8 @@ def gated_attention_bwd_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"the gated_attention backward takes nq = nk, got nq={n} "
                          f"nk={k.shape[1]}")
     if dh not in BWD_HEAD_DIMS or v.shape[-1] != dh:
-        raise NotImplementedError(
-            f"the gated_attention backward kernel takes dh = dv in {BWD_HEAD_DIMS}, got "
-            f"dh={dh} dv={v.shape[-1]}: wider heads train with ROADMAP Queue A item 10b")
+        raise ValueError(f"the gated_attention backward kernel takes dh = dv in "
+                         f"{BWD_HEAD_DIMS}, got dh={dh} dv={v.shape[-1]}")
     if BH > _MAX_BH:
         raise ValueError(f"gated_attention takes at most {_MAX_BH} batch-heads, got {BH}")
     dev = q.device
@@ -104,16 +109,24 @@ def gated_attention_bwd_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if BH == 0 or n == 0:
         return dq, dk, dv
     scale = float(dh ** -0.5)
-    dkv = bind("gated_attention_bwd", "gated_attention_bwd_dkv_launch", BWD_DKV_ARGTYPES)
-    dqf = bind("gated_attention_bwd", "gated_attention_bwd_dq_launch", BWD_DQ_ARGTYPES)
+    if dh == 64:
+        dkv = bind("gated_attention_bwd", "gated_attention_bwd_dkv_launch", BWD_DKV_ARGTYPES)
+        dqf = bind("gated_attention_bwd", "gated_attention_bwd_dq_launch", BWD_DQ_ARGTYPES)
+        shape = (BH, n)
+    else:
+        dkv = bind("gated_attention_bwd", "gated_attention_bwd_wide_dkv_launch",
+                   BWD_WIDE_DKV_ARGTYPES)
+        dqf = bind("gated_attention_bwd", "gated_attention_bwd_wide_dq_launch",
+                   BWD_WIDE_DQ_ARGTYPES)
+        shape = (BH, n, dh)
     with torch.cuda.device(dev):
         stream = stream_of(dev)
         err = dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), BH, n, scale, stream)
+                  dv.data_ptr(), *shape, scale, stream)
         raise_on_error("gated_attention_bwd_dkv", err)
         LAUNCHES["gated_attention_bwd_dkv"] += 1
         err = dqf(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                  BH, n, scale, stream)
+                  *shape, scale, stream)
         raise_on_error("gated_attention_bwd_dq", err)
         LAUNCHES["gated_attention_bwd_dq"] += 1
     return dq, dk, dv

@@ -4,9 +4,15 @@ CPU smoke run:
   PYTHONPATH=src python -m repro_torch.launch.train --arch vq-opt-125m --smoke \\
       --device cpu --steps 50 --batch 8 --seq 128
 
-Without ``--device cpu`` it trains on the card. ``--mesh host`` (one
-device) is the only mesh: the reference's production meshes (``single``,
-``pod``) come with ROADMAP Queue A item 11.
+``--arch`` takes any registry arch whose input is plain tokens, as the
+reference's launcher: the GQA stacks (VQ-OPT, phi4-mini, stablelm,
+h2o-danube, gemma3), hymba, rwkv6 and the MLA / MoE stacks (deepseek-v2,
+-v3 with its MTP loss), each with ``--vqt`` where VQT applies. The VLM and
+audio archs (internvl2, musicgen) train through ``make_train_step`` with
+their patch embeddings or codebook tokens, which the synthetic corpus does
+not make. Without ``--device cpu`` it trains on the card. ``--mesh host``
+(one device) is the only mesh: the reference's production meshes
+(``single``, ``pod``) come with ROADMAP Queue A item 11.
 """
 from __future__ import annotations
 

@@ -13,7 +13,9 @@ Two accumulation modes:
 Queries go in static blocks, and each q block visits only the KV blocks its
 causal / sliding-window mask can reach: fully masked (q block, kv block)
 pairs are skipped before any product, as the reference skips them at trace
-time. Inference only, so the reference's ``remat`` has no counterpart.
+time. In training autograd differentiates the loop, inside the layer's
+checkpoint; the reference's per-block ``remat`` has no counterpart, so a
+layer's recompute holds each block's scores until its backward.
 """
 from __future__ import annotations
 

@@ -11,7 +11,9 @@ unwindowed layer runs the ``gated_attention`` kernel, a windowed one a ring
 cache in decode and ``streaming_attention`` past ``STREAM_THRESHOLD``. The
 SSM branch is a Mamba-2 style selective recurrence with a scalar-per-head
 decay through ``models.linear_scan`` (``mamba_style=True``). With VQT the
-fused output goes through ``core.vq.quantize`` (the ``vq_assign`` kernel).
+fused output goes through ``core.vq.quantize`` (the ``vq_assign`` kernel),
+or in training through ``core.vq.forward_train`` (the Gumbel
+straight-through estimator) with the layer's noise.
 
 Parameter layout (each leaf with the stage's leading repeat dims):
 ``wq [d, H·dh]``, ``wk / wv [d, Hkv·dh]``, ``w_xz [d, 2·d_inner]``,
@@ -108,23 +110,30 @@ def _causal_conv(params: dict, xc: torch.Tensor, conv_state: Optional[torch.Tens
     return F.silu(out + params["conv_b"]), new_state
 
 
-def _fuse(params: dict, attn_out: torch.Tensor, ssm_out: torch.Tensor) -> torch.Tensor:
-    """The mean of the two normed branches, VQ (inference), the output
-    projection."""
+def _fuse(params: dict, cfg: ArchConfig, attn_out: torch.Tensor, ssm_out: torch.Tensor, *,
+          train: bool = False, vq_noise: Optional[torch.Tensor] = None
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mean of the two normed branches, VQ (inference, or with
+    ``train`` the Gumbel straight-through ``vq.forward_train`` with
+    ``vq_noise``), the output projection. Returns (out, vq aux loss)."""
     fused = 0.5 * (rmsnorm(params["norm_attn"], attn_out) + rmsnorm(params["norm_ssm"], ssm_out))
+    aux = torch.zeros((), device=fused.device)
     if "vq" in params:
-        fused, _ = vq_mod.quantize(params["vq"], fused)
-    return fused @ params["wo"]
+        if train:
+            fused, _, aux = vq_mod.forward_train(params["vq"], fused, cfg.vqt, noise=vq_noise)
+        else:
+            fused, _ = vq_mod.quantize(params["vq"], fused)
+    return fused @ params["wo"], aux
 
 
 def hymba_apply(params: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
                 positions: torch.Tensor, *, train: bool = False,
-                vq_rng=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full (prefill-style) hybrid mixer over [b, n, d]. Returns (out
-    [b, n, d], vq aux loss — 0 at inference)."""
-    if train:
-        raise NotImplementedError(
-            "training this mixer comes with ROADMAP Queue A item 10b")
+                vq_noise: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full (train / prefill) hybrid mixer over [b, n, d]. Returns (out
+    [b, n, d], vq aux loss — 0 at inference). With ``train`` the VQ hook is
+    the training-mode one (the reference's ``hymba.py:144-145``); the σ
+    attention of a global layer is differentiated by the
+    ``gated_attention`` backward kernel, the rest by autograd."""
     b, n, _ = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     # attention branch
@@ -145,7 +154,7 @@ def hymba_apply(params: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
         qs, ks, vs, logw = (F.pad(a, (0, 0, 0, pad_to)) for a in (qs, ks, vs, logw))
     y, _ = lin_attn_chunked(qs, ks, vs, logw, mamba_style=True)
     ssm_out = y[:, :, :n].movedim(1, 2).reshape(b, n, H * dh).to(x.dtype) * F.silu(z)
-    return _fuse(params, attn_out, ssm_out), torch.zeros((), device=x.device)
+    return _fuse(params, cfg, attn_out, ssm_out, train=train, vq_noise=vq_noise)
 
 
 def hymba_decode(params: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
@@ -170,7 +179,7 @@ def hymba_decode(params: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor
     y, S = lin_attn_decode_step(qs[:, :, 0], ks[:, :, 0], vs[:, :, 0], logw[:, :, 0],
                                 cache["ssm_state"], mamba_style=True)
     ssm_out = y.reshape(b, 1, H * dh).to(x.dtype) * F.silu(z)
-    return _fuse(params, attn_out, ssm_out), {
+    return _fuse(params, cfg, attn_out, ssm_out)[0], {
         "attn": attn_cache, "ssm_state": S, "conv_state": conv_state}
 
 

@@ -21,8 +21,8 @@ Two implementations, as in the reference:
   products: TF32 matmuls would lose the 1e-4 bound against the sequential
   scan.
 
-Both are plain PyTorch: the reference computes them outside any Pallas
-kernel.
+Both are plain PyTorch, differentiated by autograd in training: the
+reference computes and differentiates them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -110,18 +110,19 @@ def lin_attn_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # the loop, so no [b, h, C, dk, dv] tensor exists. The loop is host
     # launches (three a chunk: the cross term, the decay, the delta added
     # in the product's epilogue), so its operands are split once, with b
-    # and h folded into the products' batch.
+    # and h folded into the products' batch. The cross terms are stacked
+    # after the loop (autograd differentiates no product written ``out=``).
     bh = b * h
     lam_tot = torch.exp(Wtot).reshape(bh, C, dk, 1).unbind(1)  # per chunk [bh, dk, 1]
     q_c = q_in.reshape(bh, C, L, dk).unbind(1)
     kT_c = k_carry.reshape(bh, C, L, dk).transpose(-1, -2).unbind(1)  # [bh, dk, L]
     v_c = vc.reshape(bh, C, L, dv).unbind(1)
     S = S.reshape(bh, dk, dv)
-    y_cross = torch.empty((C, bh, L, dv), dtype=torch.float32, device=q.device)
+    cross = []
     for c in range(C):
-        torch.bmm(q_c[c], S, out=y_cross[c])
+        cross.append(torch.bmm(q_c[c], S))
         S = torch.baddbmm(lam_tot[c] * S, kT_c[c], v_c[c])
-    y = y_intra + y_cross.reshape(C, b, h, L, dv).movedim(0, 2)
+    y = y_intra + torch.stack(cross).reshape(C, b, h, L, dv).movedim(0, 2)
     return y.reshape(b, h, n, dv), S.reshape(b, h, dk, dv)
 
 

@@ -11,7 +11,9 @@ PyTorch: the σ weights here never go through the ``gated_attention`` kernel
 (q·k is nope + rope wide, v is v_dim wide). Sequences longer than
 ``attention.STREAM_THRESHOLD`` fold the shared RoPE key into a combined head
 dim and take ``flash.streaming_attention``. With VQT the concatenated head
-outputs go through ``core.vq.quantize`` (the ``vq_assign`` kernel).
+outputs go through ``core.vq.quantize`` (the ``vq_assign`` kernel), or in
+training through ``core.vq.forward_train`` with the layer's noise; autograd
+differentiates the rest, as the reference differentiates plain JAX.
 
 Weights (each with the stage's leading repeat dims)::
 
@@ -22,6 +24,8 @@ Weights (each with the stage's leading repeat dims)::
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -29,7 +33,9 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, LayerCfg
 from repro_torch.core import vq as vq_mod
 from repro_torch.models import attention, normal
-from repro_torch.models.attention import _project_out, _write_rows, apply_rope, make_mask
+from repro_torch.models.attention import (
+    _mix, _project_out, _write_rows, apply_rope, make_mask,
+)
 from repro_torch.models.flash import streaming_attention
 from repro_torch.models.norms import norm_init, rmsnorm
 
@@ -89,12 +95,11 @@ def _weights(scores: torch.Tensor, valid: torch.Tensor, softmax: bool) -> torch.
 
 def mla_apply(params: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
               positions: torch.Tensor, *, train: bool = False,
-              vq_rng=None) -> tuple[torch.Tensor, torch.Tensor]:
+              vq_noise: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Naive (expanded) MLA over [b, n, d]. Returns (out [b, n, d], vq aux
-    loss — 0 at inference)."""
-    if train:
-        raise NotImplementedError(
-            "training this mixer comes with ROADMAP Queue A item 10b")
+    loss — 0 at inference). With ``train`` the VQ hook is the Gumbel
+    straight-through ``vq.forward_train`` with ``vq_noise`` (as the
+    reference's ``mla.py:126-127``); autograd differentiates the rest."""
     m = cfg.mla
     b, n, _ = x.shape
     H = cfg.n_heads
@@ -122,6 +127,9 @@ def mla_apply(params: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
         del scores
         o = torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v).reshape(b, n, H * m.v_dim)
         del w
+    if train and "vq" in params:
+        o, _, aux = vq_mod.forward_train(params["vq"], o, cfg.vqt, noise=vq_noise)
+        return _mix(params, o), aux
     return _project_out(params, o), torch.zeros((), device=x.device)
 
 

@@ -13,7 +13,10 @@ order, adds its gated output into y with ``index_add_``. No token appears
 twice within one expert, so the adds are deterministic and each token sums
 its experts in the reference's order (the reference's unrouted ``fe · 0``
 terms leave y as it is). At deepseek-v2 width the loop form would read all
-160 experts' 15.1 GB a layer for every decode token.
+160 experts' 15.1 GB a layer for every decode token. In training autograd
+carries the gradient through the gates, the experts and the router's
+probabilities in the aux loss; the top-k assignment counts carry none, as
+in the reference.
 
 Without a mesh the reference's ``moe_apply`` is this dense path, and so is
 the port's. The expert-parallel ``moe_apply_ep`` is ROADMAP Queue A item

@@ -26,11 +26,12 @@ Entry points:
     ``caches_from_kv`` take non-windowed GQA stacks only, as in the
     reference.
 
-Training: ``forward(train=True)`` for GQA stacks (the Gumbel
-straight-through VQ, σ attention differentiated by the ``gated_attention``
-backward kernel, each layer recomputed in the backward with ``remat``);
-the mla, hymba and rwkv6 mixers, the MoE FFN and the MTP head raise,
-naming ROADMAP Queue A item 10b.
+Training: ``forward(train=True)`` for every mixer and FFN (the Gumbel
+straight-through VQ of gqa, mla and hymba layers, σ attention
+differentiated by the ``gated_attention`` backward kernel, everything else
+by autograd of plain PyTorch: MLA, the scans, windowed and streamed
+attention, the MoE router's load-balance loss and the MTP head), each
+layer recomputed in the backward with ``remat``.
 
 Parameter layout::
 
@@ -241,14 +242,16 @@ def _layer_fwd(lp: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
                train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm block: x + mixer(n1(x)); then x + ffn(n2(x)). Returns (x,
     the layer's aux loss: VQ's, 0 at inference, plus the MoE router's).
-    ``train`` (GQA layers only, ``_check_trainable``) runs the training-mode
-    VQ with ``vq_noise``."""
+    ``train`` runs the training-mode VQ of gqa, mla and hymba layers with
+    ``vq_noise``."""
     _check_mixer(layer)
     h = apply_norm(cfg.norm, lp["norm1"], x)
     if layer.mixer == "mla":
-        mix, aux = mla_apply(lp["mixer"], cfg, layer, h, positions)
+        mix, aux = mla_apply(lp["mixer"], cfg, layer, h, positions, train=train,
+                             vq_noise=vq_noise)
     elif layer.mixer == "hymba":
-        mix, aux = hymba_apply(lp["mixer"], cfg, layer, h, positions)
+        mix, aux = hymba_apply(lp["mixer"], cfg, layer, h, positions, train=train,
+                               vq_noise=vq_noise)
     elif layer.mixer == "rwkv6":
         mix, _, _ = rwkv_mod.rwkv_time_mix(lp["mixer"], cfg, h)
         aux = torch.zeros((), device=x.device)
@@ -281,25 +284,11 @@ def _head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _check_trainable(cfg: ArchConfig) -> None:
-    """Training runs GQA stacks with dense FFNs and no MTP head."""
-    what = ["the MTP head"] if cfg.mtp else []
-    for layer in cfg.layer_list():
-        if layer.mixer != "gqa":
-            what.append(f"the {layer.mixer} mixer")
-        if layer.ffn == "moe":
-            what.append("the moe FFN")
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: training {', '.join(sorted(set(what)))} comes with "
-            "ROADMAP Queue A item 10b")
-
-
 def _layer_noise(cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor, li: int,
                  gen: torch.Generator, vq_noise) -> Optional[torch.Tensor]:
     """Layer ``li``'s Gumbel noise [b, n, hq, Q]: ``vq_noise[li]`` when
-    given, else drawn from ``gen``; None for a layer without VQ."""
-    if cfg.vqt is None or layer.mixer != "gqa":
+    given, else drawn from ``gen``; None for a layer without VQ (rwkv6)."""
+    if cfg.vqt is None or layer.mixer == "rwkv6":
         return None
     if vq_noise is not None:
         return torch.as_tensor(vq_noise[li], dtype=torch.float32, device=x.device)
@@ -327,8 +316,6 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     ``jax.checkpoint``) recomputes the body in the backward and does not
     replay an explicit generator. ``vq_noise``, a list indexed by the
     layer's global index, overrides the draws."""
-    if train:
-        _check_trainable(cfg)
     b, n = tokens.shape[:2]
     if positions is None:
         positions = torch.arange(n, dtype=torch.int32, device=tokens.device).expand(b, n)

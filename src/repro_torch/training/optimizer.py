@@ -5,8 +5,9 @@ bias correction with ``b ** step``, ``eps`` outside the square root, and
 weight decay on every leaf (the sampled-position pool included).
 ``torch.optim.AdamW`` orders these operations differently, so it is not
 used; the updates run as ``torch._foreach_*`` calls over the flattened
-tree. Trees are nested dicts / lists / tuples of f32 tensors; the update
-returns new tensors and leaves its inputs as they were.
+tree, in passes of bounded size. Trees are nested dicts / lists / tuples
+of f32 tensors; the update returns new tensors and leaves its inputs as
+they were.
 """
 from __future__ import annotations
 
@@ -53,30 +54,65 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+# Elements of the flattened tree an update pass takes (256 MB of f32): the
+# update's temporaries (about ten a pass) stay this small, so a step holds
+# the old and new parameters and moments and the gradients (28 B a
+# parameter) and little more.
+PASS_ELEMENTS = 1 << 26
+
+
+def _passes(numels: list, cap: int):
+    """The flattened leaves of sizes ``numels`` as passes of at most ``cap``
+    elements: lists of (leaf, start, stop), a leaf larger than ``cap``
+    split across passes."""
+    group, size = [], 0
+    for i, n in enumerate(numels):
+        for start in range(0, n, cap):
+            stop = min(start + cap, n)
+            if group and size + stop - start > cap:
+                yield group
+                group, size = [], 0
+            group.append((i, start, stop))
+            size += stop - start
+    if group:
+        yield group
+
+
 def adamw_update(params, grads, state: AdamWState, lr,
                  cfg: AdamWConfig = AdamWConfig()):
-    """Returns (new_params, new_state, {"grad_norm"})."""
+    """Returns (new_params, new_state, {"grad_norm"}). The element-wise
+    update runs in passes of ``PASS_ELEMENTS`` (the same operations on
+    each element as one pass over the whole tree)."""
     p = tree_leaves(params)
-    g = [x.to(torch.float32) for x in tree_leaves(grads)]
+    g = tree_leaves(grads)
     m, v = tree_leaves(state.mu), tree_leaves(state.nu)
     gnorm = global_norm(g)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    g = torch._foreach_mul(g, scale)
     step = state.step + 1
     stepf = step.to(torch.float32)
     b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=stepf.device), stepf)
     b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=stepf.device), stepf)
-    mu = torch._foreach_add(torch._foreach_mul(m, cfg.b1), torch._foreach_mul(g, 1 - cfg.b1))
-    nu = torch._foreach_add(torch._foreach_mul(v, cfg.b2),
-                            torch._foreach_mul(torch._foreach_mul(g, 1 - cfg.b2), g))
-    mhat = torch._foreach_div(mu, b1c)
-    denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, b2c)), cfg.eps)
-    pf = [x.to(torch.float32) for x in p]
-    delta = torch._foreach_add(torch._foreach_div(mhat, denom),
-                               torch._foreach_mul(pf, cfg.weight_decay))
     lr = torch.as_tensor(lr, dtype=torch.float32, device=stepf.device)
-    new_p = torch._foreach_sub(pf, torch._foreach_mul(delta, lr))
-    new_p = [a.to(x.dtype) for a, x in zip(new_p, p)]
+    new_p = [torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in p]
+    mu = [torch.empty(x.shape, dtype=torch.float32, device=x.device) for x in m]
+    nu = [torch.empty(x.shape, dtype=torch.float32, device=x.device) for x in v]
+    flat = [[t.reshape(-1) for t in ts] for ts in (p, g, m, v, new_p, mu, nu)]
+    for group in _passes([x.numel() for x in p], PASS_ELEMENTS):
+        fp, fg, fm, fv, out_p, out_m, out_v = (
+            [ts[i][a:b] for i, a, b in group] for ts in flat)
+        gs = torch._foreach_mul([x.to(torch.float32) for x in fg], scale)
+        mi = torch._foreach_add(torch._foreach_mul(fm, cfg.b1), torch._foreach_mul(gs, 1 - cfg.b1))
+        ni = torch._foreach_add(torch._foreach_mul(fv, cfg.b2),
+                                torch._foreach_mul(torch._foreach_mul(gs, 1 - cfg.b2), gs))
+        mhat = torch._foreach_div(mi, b1c)
+        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(ni, b2c)), cfg.eps)
+        pf = [x.to(torch.float32) for x in fp]
+        delta = torch._foreach_add(torch._foreach_div(mhat, denom),
+                                   torch._foreach_mul(pf, cfg.weight_decay))
+        pi = torch._foreach_sub(pf, torch._foreach_mul(delta, lr))
+        for outs, vals in ((out_m, mi), (out_v, ni), (out_p, pi)):
+            for o, val in zip(outs, vals):
+                o.copy_(val)
     return (tree_unflatten(params, new_p),
             AdamWState(step=step, mu=tree_unflatten(state.mu, mu),
                        nu=tree_unflatten(state.nu, nu)),

@@ -80,14 +80,19 @@ def value_and_grad(loss_fn: Callable, params, *args, **kwargs):
 def lm_loss(params, cfg: ArchConfig, batch: dict, rng: Optional[torch.Generator], *,
             aux_weight: float = 1.0, vq_noise=None):
     """The LM objective of a train step (the reference's ``_lm_loss_fn``):
-    next-token loss on the text positions plus the VQ auxiliary loss.
-    Returns (loss, {"lm_loss", "aux_loss"})."""
+    next-token loss on the text positions plus the auxiliary losses (VQ's
+    and the MoE router's) and, with an MTP head, 0.3 × its next-token loss
+    of token t + 2 from position t. Returns (loss, {"lm_loss",
+    "aux_loss"})."""
     logits, aux = T.forward(params, cfg, batch["tokens"], batch.get("positions"),
                             patch_embeds=batch.get("patch_embeds"), train=True, rng=rng,
                             vq_noise=vq_noise)
     n_text = batch["tokens"].shape[1]
     lm = next_token_loss(logits[:, -n_text:], batch["tokens"], batch.get("mask"))
-    return lm + aux_weight * aux["aux_loss"], {"lm_loss": lm, "aux_loss": aux["aux_loss"]}
+    loss = lm + aux_weight * aux["aux_loss"]
+    if "mtp_logits" in aux:
+        loss = loss + 0.3 * next_token_loss(aux["mtp_logits"][:, :-1], batch["tokens"][:, 1:])
+    return loss, {"lm_loss": lm, "aux_loss": aux["aux_loss"]}
 
 
 def make_train_step(cfg: ArchConfig, schedule: Callable, opt_cfg: AdamWConfig = AdamWConfig(),

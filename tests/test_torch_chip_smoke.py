@@ -424,20 +424,45 @@ def test_gated_attention_bwd_bound_at_the_train_shape():
 def test_bwd_sweep_holds_the_train_shape_and_a_ragged_n():
     """``--sweep gated_attention_bwd`` times the VQ-OPT-125M train step's
     shape (BH = 96: 8 x 12 heads, n = 1024), a ragged n (not a whole number
-    of 64-row tiles), a long one, and each BH = 48 shape of at least a
-    tile that the kernels phase checks."""
-    assert (96, 1024) in cs.SWEEP_BWD
-    assert any(n % 64 for _, n in cs.SWEEP_BWD)
-    assert max(n for _, n in cs.SWEEP_BWD) >= 2048
+    of 64-row tiles), a long one, each BH = 48 shape of at least a tile
+    that the kernels phase checks, and every family shape of phase 20
+    (phi4-mini's dh = 128, gemma3's 256, hymba's BH = 25, each at the
+    train step's n = 4096)."""
+    assert (96, 1024, 64) in cs.SWEEP_BWD
+    assert any(n % 64 for _, n, _ in cs.SWEEP_BWD)
+    assert max(n for _, n, _ in cs.SWEEP_BWD) >= 2048
     assert {n for BH, n in cs.BWD_ATTENTION if BH == 48 and n >= 64} <= {
-        n for BH, n in cs.SWEEP_BWD if BH == 48}
+        n for BH, n, dh in cs.SWEEP_BWD if BH == 48 and dh == 64}
+    assert set(cs.BWD_FAMILIES) <= set(cs.SWEEP_BWD)
+    assert {(24, 4096, 128), (16, 4096, 256), (25, 4096, 64)} <= set(cs.BWD_FAMILIES)
+    assert {dh for _, n, dh in cs.BWD_FAMILIES if n % 64} == {128, 256}
     assert "gated_attention_bwd" in cs.SWEEPS
 
 
-def _bwd_check_row(BH, n, err):
-    nbytes, flops = cs.attention_bwd_work(BH, n)
+@pytest.mark.parametrize("BH,n,dh,flops,tc_ms,fp32_ms", [
+    (24, 4096, 128, 2.577e11, 1.562, 3.847),  # phi4-mini: 24 heads of 128
+    (16, 4096, 256, 3.437e11, 2.083, 5.129),  # gemma3's global layer: 16 of 256
+    (25, 4096, 64, 1.343e11, 0.814, 2.004),   # hymba's global layers: 25 of 64
+])
+def test_gated_attention_bwd_bounds_at_the_families_shapes(BH, n, dh, flops, tc_ms, fp32_ms):
+    """The backward's work at phase 20's shapes: 5 products of 2 dh
+    operations a causal pair, n (n + 1) / 2 pairs a head; both bounds are
+    operations (the 3xTF32 route's over 495 TFLOP/s, three products each,
+    and the FP32 cores' over 67 TFLOP/s)."""
+    nbytes, got = cs.attention_bwd_work(BH, n, dh)
+    assert got == 5 * 2 * BH * n * (n + 1) // 2 * dh
+    assert abs(got / flops - 1) < 1e-3 and nbytes == 7 * BH * n * dh * 4
+    ms, by = cs.bound(nbytes, cs.GA_PRODUCTS * got, cs.GA_PEAK)
+    assert by == "operations" and abs(ms - tc_ms) < 1e-3
+    ms, by = cs.bound(nbytes, got)
+    assert by == "operations" and abs(ms - fp32_ms) < 1e-3
+
+
+def _bwd_check_row(BH, n, err, dh=64):
+    nbytes, flops = cs.attention_bwd_work(BH, n, dh)
     bound_ms, by = cs.bound(nbytes, cs.GA_PRODUCTS * flops, cs.GA_PEAK)
-    return dict(BH=BH, n=n, max_abs_err=err, rel_err={"dq": err, "dk": err / 2, "dv": 0.0},
+    return dict(BH=BH, n=n, dh=dh, max_abs_err=err,
+                rel_err={"dq": err, "dk": err / 2, "dv": 0.0},
                 ms=1.0, plain_ms=4.0, dkv_ms=0.6, dq_ms=0.4, bound_ms=bound_ms, bound_by=by,
                 cores=cs.GA_CORES, bound_fp32_ms=cs.bound(nbytes, flops)[0],
                 bound_tc_3xtf32_ms=bound_ms)
@@ -461,6 +486,25 @@ def test_bwd_kernel_entry_replaces_no_pallas_entry():
     assert entry["max_abs_err"] == 5e-7 and entry["max_rel_err"] == 5e-7
     assert entry["bound_ms"] == gabs[1]["bound_ms"] and entry["bound_by"] == "operations"
     assert (entry["dkv_ms"], entry["dq_ms"], entry["cores"]) == (0.6, 0.4, cs.GA_CORES)
+    assert entry["head_dims"] == []
+
+
+def test_bwd_kernel_entry_gives_the_families_head_dims():
+    """With phase 20's launches by head dim, the entry carries a row for
+    each family shape at n = 4096 (not the ragged n = 1000 checks): the
+    contract's keys, its launches, its time split and both bounds."""
+    gabs = [_bwd_check_row(96, 1024, 2e-7)] + [
+        _bwd_check_row(BH, n, 1e-6 * dh / 64, dh=dh) for BH, n, dh in cs.BWD_FAMILIES]
+    entry = cs.bwd_kernel_entry(gabs, launches=192, head_dims={64: 6, 128: 24, 256: 2})
+    rows = {row["dh"]: row for row in entry["head_dims"]}
+    assert sorted(rows) == [64, 128, 256] and all(r["n"] == 4096 for r in rows.values())
+    assert (rows[128]["BH"], rows[256]["BH"], rows[64]["BH"]) == (24, 16, 25)
+    assert {dh: r["launches"] for dh, r in rows.items()} == {64: 6, 128: 24, 256: 2}
+    contract = {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "dkv_ms", "dq_ms", "bound_fp32_ms"}
+    assert all(contract <= set(r) for r in rows.values())
+    assert rows[256]["bound_ms"] == gabs[3]["bound_ms"] and rows[256]["library_ms"] is None
+    assert entry["max_abs_err"] == 4e-6 and entry["launches"] == 192
 
 
 @pytest.mark.parametrize("flips,draws", [((1, 0), 2), ((2, 1, 3), None)])
@@ -513,3 +557,69 @@ def test_train_phase_gates_pass_on_the_cpu(monkeypatch):
                                           "gated_attention_bwd_dq": 2.0}
     assert train["lm_loss"][-1] < train["lm_loss"][0] and len(train["grad_norm"]) == 6
     assert len(out["distill"]) == 3 and out["checkpoint"]["bitwise"]
+
+
+def test_family_train_phase_gates_pass_on_the_cpu(monkeypatch):
+    """Phase 20's gates at smoke size on the CPU: the card-vs-CPU steps
+    (here CPU against CPU) of every ``FAMILY_TRAIN_CHECK`` family, phi4-mini
+    and gemma3 at their full head dims; then 3 train steps of each
+    ``FAMILY_TRAIN`` model's smoke config: finite losses, moved parameters,
+    2 forward and one of each backward launch a σ layer a step (the
+    wrappers' CPU calls counted; none for rwkv6 and the MLA model), the
+    census by shape, and the backward's launches by head dim."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import gated_attention as gak
+    from repro_torch.kernels.gated_attention import ops as ga_ops
+
+    def counted(names, fn):
+        def call(*a):
+            for name in names:
+                gak.LAUNCHES[name] += 1
+            return fn(*a)
+        return call
+
+    monkeypatch.setattr(ga_ops, "_forward_bh", counted(("gated_attention",), ga_ops._forward_bh))
+    monkeypatch.setattr(ga_ops, "gated_attention_bwd_bh", counted(
+        ("gated_attention_bwd_dkv", "gated_attention_bwd_dq"), ga_ops.gated_attention_bwd_bh))
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    models = [(arch, get_config(arch, smoke=True, vqt=True)) for arch, _ in cs.FAMILY_TRAIN]
+    out = cs.family_train_phase(models=models, n=48, device="cpu")
+    assert set(out["card_vs_cpu"]) == {
+        "deepseek-v2-236b-dh64", "deepseek-v3-671b-dh64", "hymba-1.5b-dh64", "rwkv6-7b-dh64",
+        "phi4-mini-3.8b-dh128", "gemma3-12b-dh256"}
+    for check in out["card_vs_cpu"].values():
+        assert check["noise_draws"] == 1 and check["loss_diff"] == 0.0
+    per_step = {name: m["launches_per_step"] for name, m in out["models"].items()}
+    bwd = {"gated_attention_bwd_dkv": 2.0, "gated_attention_bwd_dq": 2.0}
+    assert per_step == {"hymba-1.5b": {"gated_attention": 4.0, **bwd},
+                        "phi4-mini-3.8b": {"gated_attention": 4.0, **bwd},
+                        "gemma3-12b": {"gated_attention": 2.0,
+                                       "gated_attention_bwd_dkv": 1.0,
+                                       "gated_attention_bwd_dq": 1.0},
+                        "rwkv6-7b": {}, "deepseek-v2-236b": {}}
+    assert out["models"]["gemma3-12b"]["gated_attention_per_step"] == {
+        "forward": {"4x48x64": 2.0}, "backward": {"4x48x64": 1.0}}
+    assert out["bwd_launches_by_head_dim"] == {64: 30}
+    for m in out["models"].values():
+        assert len(m["lm_loss"]) == 3 and np.isfinite(m["lm_loss"] + m["grad_norm"]).all()
+
+
+@pytest.mark.parametrize("arch,depth,layers,sigma", [
+    ("hymba-1.5b", None, 32, 3), ("phi4-mini-3.8b", 12, 12, 12), ("gemma3-12b", 6, 6, 1),
+    ("rwkv6-7b", 4, 4, 0), ("deepseek-v2-236b", 1, 1, 0)])
+def test_family_train_cuts_keep_the_published_widths(arch, depth, layers, sigma):
+    """Phase 20's configs: each arch's full-width config with VQT, only the
+    depth cut (gemma3 to one 5-local : 1-global pattern, deepseek-v2 to its
+    dense MLA layer), and the σ layers that launch ``gated_attention``."""
+    from repro_torch.configs import get_config
+
+    cfg = cs.family_train_cfg(arch, depth)
+    full = get_config(arch, vqt=True)
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.vocab,
+            cfg.d_ff, cfg.vqt) == (full.d_model, full.n_heads, full.n_kv_heads,
+                                   full.resolved_head_dim, full.vocab, full.d_ff, full.vqt)
+    assert cfg.n_layers == len(cfg.layer_list()) == layers
+    assert cs.sigma_layers(cfg) == sigma
+    assert dict(cs.FAMILY_TRAIN)[arch] == depth

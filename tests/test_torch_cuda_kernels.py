@@ -475,10 +475,10 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
                       torch.ones((3, 4), device=dev))
 
 
-def _bwd_inputs(dev, BH, n, seed=None, amp=1.0):
-    q, k, v = _qkv(dev, BH, n, n, amp, seed=seed)
+def _bwd_inputs(dev, BH, n, seed=None, amp=1.0, dh=64):
+    q, k, v = _qkv(dev, BH, n, n, amp, seed=seed, dh=dh)
     gen = torch.Generator(device=dev).manual_seed(7 + n)
-    return q, k, v, torch.randn((BH, n, 64), generator=gen, device=dev)
+    return q, k, v, torch.randn((BH, n, dh), generator=gen, device=dev)
 
 
 @pytest.mark.parametrize("BH,n,amp", [
@@ -505,6 +505,55 @@ def test_gated_attention_bwd_kernel_matches_plain(dev, BH, n, amp):
     for g, w in zip(got, ga.gated_attention_bwd_ref(q, k, v, do)):
         assert g.shape == w.shape
         assert float((g - w).abs().max()) <= cs.BWD_TOL * float(w.abs().max())
+
+
+@pytest.mark.parametrize("BH,n,dh,amp", [
+    (24, 1000, 128, 1), (16, 1000, 256, 1),  # phi4-mini's and gemma3's heads
+    (24, 37, 128, 1), (16, 37, 256, 1), (24, 1, 128, 1), (16, 1, 256, 1),
+    (3, 33, 128, 1), (3, 17, 256, 1),   # a streamed tile and a row
+    (3, 65, 128, 1), (3, 129, 256, 1),  # a row past a tile
+    (8, 300, 128, 3), (8, 300, 256, 3),  # |s| up to ~14: the GELU's tail
+])
+def test_gated_attention_bwd_wide_heads_match_plain(dev, BH, n, dh, amp):
+    """dh = 128 and 256 (BH = heads of phi4-mini, 24, and of gemma3, 16,
+    as the GQA wrapper hands them over): dq, dk and dv within 1e-5 of the
+    plain version's max |.|, one launch of each kernel, the same bits on a
+    second call."""
+    q, k, v, do = _bwd_inputs(dev, BH, n, amp=amp, dh=dh)
+    before = dict(ga.LAUNCHES)
+    got = ga.gated_attention_bwd_bh(q, k, v, do)
+    torch.cuda.synchronize()
+    assert ga.LAUNCHES["gated_attention_bwd_dkv"] == before["gated_attention_bwd_dkv"] + 1
+    assert ga.LAUNCHES["gated_attention_bwd_dq"] == before["gated_attention_bwd_dq"] + 1
+    for g, w in zip(got, ga.gated_attention_bwd_ref(q, k, v, do)):
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= cs.BWD_TOL * float(w.abs().max())
+    again = ga.gated_attention_bwd_bh(q, k, v, do)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("dh,H,Hkv", [(128, 24, 8), (256, 16, 8)])
+def test_gated_attention_autograd_wide_gqa_is_the_kernels(dev, dh, H, Hkv):
+    """phi4-mini's (24 : 8) and gemma3's (16 : 8) GQA under autograd at
+    their head dims: the kernels launch and the gradients equal autograd of
+    the plain σ attention core within 1e-5 of each gradient's max."""
+    from repro_torch.models.attention import attention_core, make_mask
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((1, 130, h, dh), generator=gen, device=dev) * s
+               for h, s in ((H, 0.5), (Hkv, 0.5), (Hkv, 1.0)))
+    go = torch.randn((1, 130, H * dh), generator=gen, device=dev)
+    before = dict(ga.LAUNCHES)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad((ga.gated_attention(*leaves) * go).sum(), leaves)
+    assert {key: ga.LAUNCHES[key] - before[key] for key in before} == {
+        "gated_attention": 1, "gated_attention_bwd_dkv": 1, "gated_attention_bwd_dq": 1}
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain = attention_core(*leaves, make_mask(130, 130, causal=True, window=None, device=dev),
+                           softmax=False)
+    want = torch.autograd.grad((plain * go).sum(), leaves)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
 def test_gated_attention_bwd_two_calls_are_bitwise_equal(dev):
@@ -539,9 +588,19 @@ def test_gated_attention_autograd_on_the_card_is_the_kernels(dev):
 
 
 def test_gated_attention_bwd_refuses_what_it_does_not_take(dev):
-    x = torch.zeros((2, 8, 128), device=dev)
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    """dh = 96 and dv != dh raise, naming the head dims the kernels take;
+    the wide launchers refuse dh = 96 too; nq != nk raises."""
+    from repro_torch.kernels._launch import bind, stream_of
+
+    x = torch.zeros((2, 8, 96), device=dev)
+    with pytest.raises(ValueError, match=r"dh = dv in \(64, 128, 256\), got dh=96 dv=96"):
         ga.gated_attention_bwd_bh(x, x, x, x)
+    fn = bind("gated_attention_bwd", "gated_attention_bwd_wide_dkv_launch",
+              ga.ops.BWD_WIDE_DKV_ARGTYPES)
+    assert fn(*[x.data_ptr()] * 6, 2, 8, 96, 96 ** -0.5, stream_of(dev)) != 0
+    x = torch.zeros((2, 8, 128), device=dev)
+    with pytest.raises(ValueError, match="got dh=128 dv=64"):
+        ga.gated_attention_bwd_bh(x, x, x[..., :64].contiguous(), x)
     q, k = torch.zeros((2, 8, 64), device=dev), torch.zeros((2, 9, 64), device=dev)
     with pytest.raises(ValueError, match="nq = nk"):
         ga.gated_attention_bwd_bh(q, k, k, q)

@@ -71,6 +71,13 @@ def test_streaming_path_equals_dense_and_the_reference(monkeypatch, softmax):
 
 
 def test_forward_with_vq_matches_the_reference_and_refuses_training():
+    """Inference with VQ, then the training-mode layer: given the
+    reference's Gumbel noise for its ``vq_rng``, the straight-through output
+    and the VQ aux loss within 1e-5 of the reference's ``mla_apply(...,
+    train=True)`` (no near tie: the top two Gumbel logits of every token
+    and head lie more than 1e-5 apart)."""
+    from repro_torch.core import vq as port_vq
+
     cfg, cfg_j, pj, pt = _layer(True)
     layer = cfg.layer_list()[0]
     x, pos = _x(1, cfg, 24), _pos(2, 24)
@@ -78,8 +85,27 @@ def test_forward_with_vq_matches_the_reference_and_refuses_training():
     want, _ = ref_mla.mla_apply(pj, cfg_j, layer, jnp.asarray(x), jnp.asarray(pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-4, rtol=0)
     assert float(aux) == 0.0
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mla.mla_apply(pt, cfg, layer, torch.tensor(x), torch.tensor(pos), train=True)
+    key = jax.random.PRNGKey(4)
+    want, want_aux = ref_mla.mla_apply(pj, cfg_j, layer, jnp.asarray(x), jnp.asarray(pos),
+                                       train=True, vq_rng=key)
+    noise = np.asarray(jax.random.gumbel(key, (2, 24, cfg.vqt.n_heads, cfg.vqt.codebook_size)))
+    scores = []
+    real = port_vq.forward_train
+
+    def spy(params, o, vcfg, **kw):
+        scores.append(port_vq.scores(params, o.detach()) + kw["noise"])
+        return real(params, o, vcfg, **kw)
+
+    port_vq.forward_train = spy
+    try:
+        got, aux = mla.mla_apply(pt, cfg, layer, torch.tensor(x), torch.tensor(pos), train=True,
+                                 vq_noise=torch.tensor(noise))
+    finally:
+        port_vq.forward_train = real
+    top2 = torch.topk(scores[0], 2, dim=-1).values
+    assert bool(((top2[..., 0] - top2[..., 1]) > 1e-5).all())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(float(aux), float(want_aux), atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("vqt", [False, True])

@@ -250,6 +250,16 @@ def test_mla_families_refuse_prefill_and_kv_export():
 
 
 def test_training_still_raises_naming_item_10():
+    """Training the MLA / MoE family runs: a finite loss with the MoE
+    router's load-balance loss in the aux loss, and a gradient in the
+    router, every expert that took a token and the VQ codebook
+    (``tests/test_torch_family_training.py`` holds it to ``jax.grad``)."""
+    from repro_torch.training.step import lm_loss, value_and_grad
+
     cfg, _, _, tp = _setup("deepseek-v2-236b", True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PT.forward(tp, cfg, torch.zeros((1, 4), dtype=torch.int64), train=True)
+    toks, pos = _inputs(cfg, 3)
+    loss, m, g = value_and_grad(lm_loss, tp, cfg, {"tokens": torch.tensor(toks)}, None)
+    assert np.isfinite(float(loss)) and float(m["aux_loss"]) > 0
+    ffn = g["stages"][1][0]["ffn"]
+    assert float(ffn["router"].abs().max()) > 0 and float(ffn["w_up"].abs().max()) > 0
+    assert float(g["stages"][0][0]["mixer"]["vq"]["codebook"].abs().max()) > 0

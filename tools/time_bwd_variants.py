@@ -2,12 +2,13 @@
 one card.
 
     python3 tools/time_bwd_variants.py NAME=SOURCE[:-DFLAG[,-DFLAG...]] ... \
-        [--shapes 96x1024,48x1024]
+        [--shapes 96x1024,48x1024,24x4096x128]
 
 Each SOURCE (relative to the repository root) is a CUDA file that exports
-the two launchers of ``src/repro_torch/csrc/gated_attention_bwd.cu``: that
-file, or a copy of it with its design choices behind macros, kept under the
-git-ignored ``build/``. Each is built with the port's nvcc flags
+the launchers of ``src/repro_torch/csrc/gated_attention_bwd.cu``: that
+file, or a copy of it with its design choices behind macros or edited,
+kept under the git-ignored ``build/``. A shape is BHxn (dh = 64, the two
+dh = 64 launchers) or BHxnxdh (dh = 128 or 256: the wide launchers). Each is built with the port's nvcc flags
 (``_build.NVCC_FLAGS``), ``-I src/repro_torch/csrc`` and its own ``-D``
 flags, all at once, and its ptxas registers and spills printed. Then, at
 each BH x n of ``--shapes``, every variant is held against the plain version
@@ -39,7 +40,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels._launch import stream_of  # noqa: E402
 from repro_torch.kernels.gated_attention import gated_attention_bwd_ref  # noqa: E402
 from repro_torch.kernels.gated_attention.ops import (  # noqa: E402
-    BWD_DKV_ARGTYPES, BWD_DQ_ARGTYPES,
+    BWD_DKV_ARGTYPES, BWD_DQ_ARGTYPES, BWD_WIDE_DKV_ARGTYPES, BWD_WIDE_DQ_ARGTYPES,
 )
 
 OUT = ROOT / "build" / "bwd_variants"
@@ -58,20 +59,27 @@ def build(name: str, source: str, flags: list[str]) -> tuple[str, Path, list[str
 
 
 def bind(lib_path: Path) -> types.SimpleNamespace:
-    """A namespace with ``gated_attention_bwd_bh`` (the two launchers in
-    turn, as the port's wrapper) and ``gated_attention_bwd_ref``."""
+    """A namespace with ``gated_attention_bwd_bh`` (the two launchers of the
+    head dim in turn, as the port's wrapper) and ``gated_attention_bwd_ref``."""
     lib = ctypes.CDLL(str(lib_path))
-    dkv, dqf = lib.gated_attention_bwd_dkv_launch, lib.gated_attention_bwd_dq_launch
-    dkv.argtypes, dqf.argtypes = BWD_DKV_ARGTYPES, BWD_DQ_ARGTYPES
-    dkv.restype = dqf.restype = ctypes.c_int
+    fns = {}
+    for wide, names, types_ in ((False, ("dkv", "dq"), (BWD_DKV_ARGTYPES, BWD_DQ_ARGTYPES)),
+                                (True, ("dkv", "dq"), (BWD_WIDE_DKV_ARGTYPES,
+                                                       BWD_WIDE_DQ_ARGTYPES))):
+        for name, argtypes in zip(names, types_):
+            fn = getattr(lib, f"gated_attention_bwd_{'wide_' if wide else ''}{name}_launch")
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fns[wide, name] = fn
 
     def bwd(q, k, v, do):
         BH, n, dh = q.shape
         dq, dk, dv = (torch.empty_like(q) for _ in range(3))
         ptrs = [t.data_ptr() for t in (q, k, v, do)]
+        wide = dh != 64
+        shape = (BH, n, dh) if wide else (BH, n)
         stream = stream_of(q.device)
-        if dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), BH, n, dh ** -0.5, stream) or \
-                dqf(*ptrs, dq.data_ptr(), BH, n, dh ** -0.5, stream):
+        if fns[wide, "dkv"](*ptrs, dk.data_ptr(), dv.data_ptr(), *shape, dh ** -0.5, stream) or \
+                fns[wide, "dq"](*ptrs, dq.data_ptr(), *shape, dh ** -0.5, stream):
             raise RuntimeError("a launch was refused")
         return dq, dk, dv
 
@@ -103,13 +111,13 @@ def main() -> int:
     print(cs.nvidia_smi(), flush=True)
     order = list(mods) + list(mods)[::-1]
     for shape in args.shapes.split(","):
-        BH, n = (int(x) for x in shape.split("x"))
+        BH, n, dh = (int(x) for x in (shape + "x64").split("x")[:3])
         for name in order:
             cs.BWD_TOL = float("inf") if name.startswith("diag_") else 1e-5
             row = cs.check_gated_attention_bwd(
-                mods[name], torch.Generator(device="cuda").manual_seed(0), n, BH=BH)
+                mods[name], torch.Generator(device="cuda").manual_seed(0), n, BH=BH, dh=dh)
             print(json.dumps({"variant": name, **{k: row[k] for k in (
-                "BH", "n", "ms", "dkv_ms", "dq_ms", "plain_ms", "bound_ms", "rel_err")}}),
+                "BH", "n", "dh", "ms", "dkv_ms", "dq_ms", "plain_ms", "bound_ms", "rel_err")}}),
                 flush=True)
     return 0
 
