@@ -67,7 +67,13 @@ and exits non-zero):
                 (``incr_patch`` device time and launches).
 8. profile    — one more round of edits on the served fleet under
                 torch.profiler: device busy time against wall time, and the
-                kernels that take it.
+                kernels that take it; then each (B, n_cap, C, R) the round
+                dispatched priced by ``launch/roofline.py``'s
+                ``edit_step_roofline`` at its H100 peaks and the engine's
+                weight bytes, the analytic floor summed over the round
+                beside the busy time (``xla_flops``: ``FlopCounterMode``'s
+                count of one dispatch, which does not see the hand-written
+                kernels' products; numbers only, no gate).
 9. forward    — ``models.transformer.forward`` on the 4 documents padded to
                 a [4, 1024] batch with their sampled position ids: each
                 document's last-row logits within 3e-4 of the engine's
@@ -253,7 +259,8 @@ and exits non-zero):
                 (cut 48 -> 6, one global layer at dh=256), rwkv6-7b (cut
                 32 -> 4), deepseek-v2-236b VQT (cut 60 -> 1, its dense MLA
                 layer), each through ``make_train_step`` with remat for 3
-                steps at [1, 4096] of ``SyntheticCorpus(seed=0)``, lr 6e-4,
+                steps at [1, 4096] (``train_4k``'s length, from the port's
+                ``launch/specs.py``) of ``SyntheticCorpus(seed=0)``, lr 6e-4,
                 warmup 1: every loss and grad norm finite, every small
                 parameter leaf moved, 2 ``gated_attention`` launches and
                 one of each backward kernel a step a σ layer without a
@@ -261,6 +268,31 @@ and exits non-zero):
                 over steps 2-3, peak memory, the launches by shape, one
                 more step profiled (device busy and idle, the top
                 kernels). Each model is freed before the next.
+21. grid      — the model axis and the expert-parallel MoE
+                (``grid_phase``). (a) deepseek-v2-236b's MoE layer at full
+                width (router, 160 experts top-6 at d 5120, f 1536, and 2
+                shared experts: 15.3 GB drawn on the card from seed 0) on
+                [1, 1024] seeded normal tokens: ``moe_apply_ep`` on (data,
+                model) grids (1, 1) and (1, 4) whose entries are the one
+                card, against ``moe_apply_dense``: with the capacity factor
+                raised to 160 / 6 no assignment may drop and EP must lie
+                within 2e-5 of dense (a token routed differently at a near
+                tie, k-th and (k+1)-th probabilities within 1e-5, exempt
+                and counted); at the config's 1.25 the dropped assignments
+                a slice are printed and tokens without one must lie within
+                2e-5. ms a call (CUDA events) for EP at M = 1 and 4 and for
+                dense, the bytes the exchanges copied, one profiled call
+                each (device idle share). With two or more cards, the
+                experts placed once on a (1, k) grid of k cards (k of 8, 5,
+                4, 2 dividing 160): within 2e-5 of the one-card (1, k)
+                grid (bitwise or not printed), the peak memory each card
+                holds. (b) one train step of deepseek-v2's smoke config
+                with VQT under a (2, 2) grid of the card against the same
+                under a (2, 2) grid of the CPU (``card_vs_cpu_step``), and
+                the same at (1, 1); ``launch.train``'s ``--mesh host``
+                step function on the card goes through ``moe_apply_ep``
+                and gives the loss of ``make_train_step`` under a (1, 1)
+                grid, bitwise.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line
 (``delta_gate`` at the threshold phase's most served r), and the last line
@@ -3148,7 +3180,7 @@ def recorded_vq_train():
         yield calls
 
 
-def card_vs_cpu_step(cfg, b: int, n: int, seed: int = 0, device=None) -> dict:
+def card_vs_cpu_step(cfg, b: int, n: int, seed: int = 0, device=None, grids=None) -> dict:
     """One train step's loss and gradients (``training.step.lm_loss``
     through ``value_and_grad``, remat on) on ``device`` against the same on
     the CPU through the plain versions: the same weights (drawn on the
@@ -3161,10 +3193,15 @@ def card_vs_cpu_step(cfg, b: int, n: int, seed: int = 0, device=None) -> dict:
     route flipped at a near tie is drawn again, up to ``TRAIN_DRAWS`` draws
     in all; on the first draw with no flip the loss must lie within
     ``TRAIN_LOSS_TOL`` and every gradient leaf within ``TRAIN_GRAD_TOL`` of
-    its max. Raises when every draw flipped."""
+    its max. Raises when every draw flipped. With ``grids`` (the CPU's
+    grid, the card's), each side's step runs under ``use_mesh`` of its grid,
+    so a MoE layer goes through ``moe_apply_ep``: one router call a slice,
+    matched slice by slice."""
     from repro_torch.common.pytree import path_names, tree_flatten_with_path
     from repro_torch.core import vq as vq_mod
     from repro_torch.data import SyntheticCorpus, lm_batches
+    from repro_torch.distributed.context import use_mesh
+    from repro_torch.models.moe import grid_rows
     from repro_torch.models.transformer import init_params, params_from_numpy
     from repro_torch.training.step import lm_loss, value_and_grad
 
@@ -3176,6 +3213,8 @@ def card_vs_cpu_step(cfg, b: int, n: int, seed: int = 0, device=None) -> dict:
     L = n_layers(cfg)
     n_vq = 0 if cfg.vqt is None else sum(layer.mixer != "rwkv6" for layer in cfg.layer_list())
     n_moe = sum(layer.ffn == "moe" for layer in cfg.layer_list())
+    n_moe *= 1 if grids is None else grid_rows(grids[0]).size  # router calls a forward
+    grids = grids or (None, None)
     _, launches = launch_counters()
     ties, flips, route_tie, route_flip = [], [], [], []
     for draw in range(TRAIN_DRAWS):
@@ -3183,12 +3222,14 @@ def card_vs_cpu_step(cfg, b: int, n: int, seed: int = 0, device=None) -> dict:
         noise = None if cfg.vqt is None else [
             vq_mod.gumbel(gen, (b, n, cfg.vqt.n_heads, cfg.vqt.codebook_size)) for _ in range(L)]
         runs = []
-        for dev, params in ((torch.device("cpu"), cpu), (torch.device(device), card)):
+        for dev, params, grid in ((torch.device("cpu"), cpu, grids[0]),
+                                  (torch.device(device), card, grids[1])):
             bt = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
             reset_launches()
             sync(dev)
             t0 = time.perf_counter()
-            with recorded_vq_train() as calls, recorded_routes() as routes:
+            with recorded_vq_train() as calls, recorded_routes() as routes, (
+                    use_mesh(grid) if grid is not None else contextlib.nullcontext()):
                 loss, _, grads = value_and_grad(
                     lm_loss, params, cfg, bt, None,
                     vq_noise=None if noise is None else [x.to(dev) for x in noise])
@@ -3420,9 +3461,11 @@ def sigma_layers(cfg) -> int:
         layer.mixer in ("gqa", "hymba") and layer.window is None for layer in cfg.layer_list())
 
 
-def family_train(cfg, steps: int = 3, n: int = 4096, lr: float = 6e-4, device=None) -> dict:
+def family_train(cfg, steps: int = 3, n: int | None = None, lr: float = 6e-4,
+                 device=None) -> dict:
     """``cfg`` from seed 0 (weights drawn on ``device``'s generator) through
-    ``make_train_step`` with remat: ``steps`` steps at [1, n] of
+    ``make_train_step`` with remat: ``steps`` steps at [1, n] (default:
+    ``train_4k``'s length, ``launch/specs.py``) of
     ``SyntheticCorpus(seed=0)``, lr ``lr``, warmup 1 — every loss and grad
     norm finite, every small parameter leaf moved, 2 ``gated_attention``
     launches a step a σ layer without a window (the forward and its
@@ -3434,6 +3477,7 @@ def family_train(cfg, steps: int = 3, n: int = 4096, lr: float = 6e-4, device=No
     from repro_torch.training import make_schedule, make_train_step, train_state_init
 
     device = torch.device(device or DEVICE)
+    n = n or train_4k_len()
     on_card = device.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
@@ -3498,7 +3542,7 @@ def family_train(cfg, steps: int = 3, n: int = 4096, lr: float = 6e-4, device=No
     return out
 
 
-def family_train_phase(models=None, checks=None, steps: int = 3, n: int = 4096,
+def family_train_phase(models=None, checks=None, steps: int = 3, n: int | None = None,
                        check_b: int = 2, device=None) -> dict:
     """Phase 20: training of every family. (1) ``card_vs_cpu_step`` on the
     smoke configs of ``checks`` ((name, config) pairs; default
@@ -3533,6 +3577,299 @@ def family_train_phase(models=None, checks=None, steps: int = 3, n: int = 4096,
             by_dh[dh] = by_dh.get(dh, 0) + sum(
                 v for k, v in res["launches"].items() if "bwd" in k)
     return out
+
+
+GRID_SHAPES = ((1, 1), (1, 4))  # (data, model) grids whose entries repeat the one card
+EP_TOL = 2e-5  # EP against dense where nothing dropped (the reference's tests/test_models.py:193)
+GRID_CARDS = (8, 5, 4, 2)  # a (1, k) grid of real cards: the largest k dividing 160 experts
+GRID_AXES = ("data", "model")
+
+
+def sync_all(device) -> None:
+    """Wait for ``device`` and, on the card, for every visible card (a
+    grid's copies run on the cards of its entries)."""
+    if torch.device(device).type == "cuda":
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+
+def wall_ms(fn, device, warmup: int = 2, iters: int = 10) -> float:
+    """Median host-clock ms of ``fn``, each run ending in ``sync_all``
+    (a run over several cards, which one card's events do not cover)."""
+    for _ in range(warmup):
+        fn()
+    sync_all(device)
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        sync_all(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def ep_slices(stats: dict, M: int, T: int) -> tuple[list, torch.Tensor]:
+    """The last EP call's dropped assignments a slice (data row 0) and the
+    [T] tokens with a dropped assignment."""
+    kept = [stats["kept"][(0, m)].cpu() for m in range(M)]
+    per = [int((~k).sum()) for k in kept]
+    k = kept[0].numel() // (-(-T // M))
+    tokens = torch.cat([(~kk).view(-1, k).any(1) for kk in kept])[:T]
+    return per, tokens
+
+
+def ep_layer_check(cfg, n: int, device, grids=GRID_SHAPES, cards=None) -> dict:
+    """Phase 21 (a): one MoE layer of ``cfg`` at full width (router, the
+    routed experts and the shared ones drawn on ``device`` from seed 0) on
+    [1, n] seeded normal tokens: ``moe_apply_ep`` on each (data, model)
+    grid of ``grids`` (entries repeating ``device``) against
+    ``moe_apply_dense``. With the capacity raised to E / k nothing can drop
+    and EP must lie within ``EP_TOL`` of dense (a token whose route differs
+    at a near tie, k-th and (k+1)-th probabilities within ``ROUTE_TIE``, is
+    exempt and counted). At the config's capacity the dropped assignments a
+    slice are printed and the tokens without one must lie within
+    ``EP_TOL``. ms a call (CUDA events) at the config's capacity for each
+    grid and dense, the bytes the exchanges copied, one profiled call each.
+    With ``cards`` (a list of k devices; default: the largest k of
+    ``GRID_CARDS`` when two or more cards are visible) the experts are
+    placed once on a (1, k) grid of them and EP there must lie within
+    ``EP_TOL`` of the one-device (1, k) grid (bitwise or not is printed),
+    with the peak memory each card holds."""
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.distributed.context import use_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    e = cfg.moe
+    laps, lap = stopwatch()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = moe.moe_init(gen, cfg)
+    x = torch.randn((1, n, cfg.d_model), generator=gen, device=device)
+    sync(device)
+    lap("init")
+    raised = dataclasses.replace(cfg, moe=dataclasses.replace(
+        e, capacity_factor=e.n_experts / e.top_k))
+    out = dict(d=cfg.d_model, experts=e.n_experts, top_k=e.top_k, d_ff_expert=e.d_ff_expert,
+               shared=e.n_shared, tokens=n, parameters=sum(p.numel() for p in tree_leaves(params)),
+               parameter_bytes=tensor_bytes(params), capacity_factor=e.capacity_factor,
+               raised_capacity_factor=raised.moe.capacity_factor, tolerance=EP_TOL, grids={})
+    with torch.no_grad():
+        with recorded_routes() as dense_routes:
+            y_d, aux_d = moe.moe_apply_dense(params, cfg, x)
+        out["dense"] = dict(aux=float(aux_d), ms=time_ms(lambda: moe.moe_apply_dense(
+            params, cfg, x)))
+        prof = profiled(lambda: moe.moe_apply_dense(params, cfg, x), (), top=5)
+        out["dense"]["profile"] = {k: prof[k] for k in (
+            "wall_ms_profiled", "device_busy_ms", "device_idle_share", "device_launches")}
+        lap("dense")
+        for shape in grids:
+            grid = make_mesh(shape, GRID_AXES, [device] * int(np.prod(shape)))
+            M = shape[1]
+            res = {}
+            for what, c in (("raised", raised), ("config", cfg)):
+                moe.reset_ep_stats()
+                with recorded_routes() as routes, use_mesh(grid):
+                    y, aux = moe.moe_apply_ep(params, c, x)
+                flipped = route_flips(dense_routes, routes, 1, f"grid {shape}").cpu()
+                per, dropped = ep_slices(moe.EP_STATS, M, n)
+                ok = (~(flipped | dropped)).to(device)
+                err = float((y[0][ok] - y_d[0][ok]).abs().max())
+                if what == "raised" and sum(per):
+                    raise AssertionError(f"grid {shape}: {sum(per)} assignments dropped at "
+                                         f"capacity factor {c.moe.capacity_factor}")
+                if err > EP_TOL:
+                    raise AssertionError(f"grid {shape}, {what} capacity: EP differs from "
+                                         f"dense by {err} on tokens with no drop")
+                res[what] = dict(capacity=moe._ep_capacity(-(-n // M), c.moe, e.n_experts),
+                                 max_abs_err_vs_dense=err, route_near_tie_flips=int(flipped.sum()),
+                                 dropped_per_slice=per, tokens_with_a_drop=int(dropped.sum()),
+                                 aux=float(aux), exchange_bytes=moe.EP_STATS["exchange_bytes"],
+                                 device_copy_bytes=moe.EP_STATS["device_copy_bytes"])
+                del y
+            run = lambda: moe_ep_call(moe, params, cfg, x, grid)  # noqa: E731
+            res["config"]["ms"] = time_ms(run)
+            prof = profiled(run, (), top=5)
+            res["config"]["profile"] = {k: prof[k] for k in (
+                "wall_ms_profiled", "device_busy_ms", "device_idle_share", "device_launches",
+                "top_kernels")}
+            out["grids"]["x".join(map(str, shape))] = res
+            lap(f"grid {shape}")
+        if cards is None and on_card and torch.cuda.device_count() >= 2:
+            k = next(c for c in GRID_CARDS if c <= torch.cuda.device_count()
+                     and e.n_experts % c == 0)
+            cards = [torch.device("cuda", i) for i in range(k)]
+        if cards:
+            out["cards"] = placed_cards_check(moe, params, cfg, x, cards, device)
+            lap("cards")
+    out["laps_s"] = laps
+    return out
+
+
+def moe_ep_call(moe, params, cfg, x, grid):
+    from repro_torch.distributed.context import use_mesh
+
+    with use_mesh(grid):
+        return moe.moe_apply_ep(params, cfg, x)
+
+
+def placed_cards_check(moe, params, cfg, x, cards, device) -> dict:
+    """Phase 21 (a) on k cards: the experts placed once on a (1, k) grid of
+    ``cards`` (``place_experts``), EP there against EP on a (1, k) grid of
+    ``device`` alone with the whole leaves (the same M): within
+    ``EP_TOL``, bitwise or not; ms a call (host clock over all cards) for
+    both; the peak memory each card holds."""
+    from repro_torch.launch.mesh import make_mesh
+
+    k = len(cards)
+    on_card = torch.device(device).type == "cuda"
+    one = make_mesh((1, k), GRID_AXES, [device] * k)
+    grid = make_mesh((1, k), GRID_AXES, cards)
+    y_one, _ = moe_ep_call(moe, params, cfg, x, one)
+    placed = moe.place_experts(params, grid)
+    if on_card:
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.reset_peak_memory_stats(i)
+    moe.reset_ep_stats()
+    y, _ = moe_ep_call(moe, placed, cfg, x, grid)
+    sync_all(device)
+    err = float((y - y_one).abs().max())
+    if err > EP_TOL:
+        raise AssertionError(f"{k} cards: EP differs from one card's by {err}")
+    out = dict(cards=[str(c) for c in cards], max_abs_err_vs_one_card=err,
+               bitwise=bool(torch.equal(y.cpu(), y_one.cpu())),
+               exchange_bytes=moe.EP_STATS["exchange_bytes"],
+               device_copy_bytes=moe.EP_STATS["device_copy_bytes"],
+               ms=wall_ms(lambda: moe_ep_call(moe, placed, cfg, x, grid), device),
+               one_card_ms=wall_ms(lambda: moe_ep_call(moe, params, cfg, x, one), device))
+    if on_card:
+        out["peak_mem_gb"] = {str(c): torch.cuda.max_memory_allocated(c) / 1e9 for c in cards}
+        out["resident_gb"] = {str(c): torch.cuda.memory_allocated(c) / 1e9 for c in cards}
+    del placed
+    return out
+
+
+def grid_train_check(cfg, b: int, n: int, device) -> dict:
+    """Phase 21 (b): one train step of ``cfg`` (deepseek-v2's smoke config)
+    under a (2, 2) grid of the card's entries against the same step under
+    a (2, 2) grid of the CPU (``card_vs_cpu_step``: loss within 1e-5, every
+    gradient leaf within 1e-4 of its max), the same on (1, 1) grids; then
+    ``launch.train``'s ``--mesh host`` step function on the card (its MoE
+    layers through ``moe_apply_ep``) against ``make_train_step`` under a
+    (1, 1) grid of the card: the same loss, bitwise."""
+    from repro_torch.data import SyntheticCorpus, lm_batches
+    from repro_torch.distributed.context import use_mesh
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.training import make_schedule, make_train_step, train_state_init
+
+    out = {}
+    for shape in ((2, 2), (1, 1)):
+        grids = tuple(make_mesh(shape, GRID_AXES, [dev] * int(np.prod(shape)))
+                      for dev in ("cpu", device))
+        out["x".join(map(str, shape))] = card_vs_cpu_step(cfg, b, n, device=device, grids=grids)
+    sched = make_schedule(peak_lr=1e-3, warmup_steps=1, total_steps=2)
+    batch = next(lm_batches(SyntheticCorpus(vocab=cfg.vocab, seed=0), batch=b, seq_len=n,
+                            steps=1, pos_pool=cfg.pos_pool if cfg.pos == "sampled" else None))
+    state = lambda: train_state_init(cfg, generator=torch.Generator().manual_seed(0),  # noqa: E731
+                                     device=device)
+    launcher = launch_train.grid_step(make_train_step(cfg, sched),
+                                      launch_train.make_grid("host", device))
+    moe.reset_ep_stats()
+    _, m_launch = launcher(state(), batch)
+    ep_calls = moe.EP_STATS["calls"]
+    with use_mesh(make_mesh((1, 1), GRID_AXES, [device])):
+        _, m_grid = make_train_step(cfg, sched)(state(), batch)
+    n_moe = sum(layer.ffn == "moe" for layer in cfg.layer_list())
+    if ep_calls < n_moe:
+        raise AssertionError(f"launch.train --mesh host: {ep_calls} moe_apply_ep calls for "
+                             f"{n_moe} MoE layers")
+    if float(m_launch["lm_loss"]) != float(m_grid["lm_loss"]):
+        raise AssertionError(f"launch.train --mesh host: loss {float(m_launch['lm_loss'])}, "
+                             f"under a 1x1 grid {float(m_grid['lm_loss'])}")
+    out["launcher_host"] = dict(ep_calls=ep_calls, moe_layers=n_moe,
+                                lm_loss=float(m_launch["lm_loss"]),
+                                aux_loss=float(m_launch["aux_loss"]), bitwise=True)
+    return out
+
+
+def grid_phase(cfg=None, n: int = 1024, train_cfg=None, train_b: int = 2, train_n: int = 64,
+               grids=GRID_SHAPES, cards=None, device=None) -> dict:
+    """Phase 21: the model axis and the expert-parallel MoE. (a)
+    ``ep_layer_check`` on ``cfg`` (default deepseek-v2-236b's MoE layer at
+    full width: 160 experts top-6 at d 5120, f 1536, 2 shared) over
+    ``grids``; (b) ``grid_train_check`` on ``train_cfg`` (default
+    deepseek-v2's smoke config with VQT) at [train_b, train_n]."""
+    from repro_torch.configs import get_config
+
+    device = device or DEVICE
+    cfg = cfg or get_config("deepseek-v2-236b")
+    train_cfg = train_cfg or get_config("deepseek-v2-236b", smoke=True, vqt=True)
+    out = dict(routed_layer=ep_layer_check(cfg, n, device, grids=grids, cards=cards))
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    out["train"] = grid_train_check(train_cfg, train_b, train_n, device)
+    return out
+
+
+def edit_roofline(srv, cfg, shapes: dict, busy_ms: float) -> dict:
+    """Phase 8's dispatches priced by ``launch.roofline``: each (B, n_cap,
+    C, R) of the profiled round at the module's H100 peaks and the
+    engine's weight bytes; the analytic floor summed over the round beside
+    the round's measured device busy ms (numbers, no gate). ``xla_flops`` is
+    ``FlopCounterMode``'s count of one dispatch of the shape (replaces on
+    every slot of a fresh batch): the aten ops it sees, not the
+    hand-written kernels' products (ctypes calls), nor any bytes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import roofline
+
+    rows, floor = [], 0.0
+    rng = np.random.default_rng(0)
+    for (B, n_cap, C, R), calls in sorted(shapes.items()):
+        eng = srv.engine(C, R)
+        st = eng.batch_full_forward(rng.integers(0, cfg.vocab, (B, n_cap)),
+                                    np.tile(np.arange(n_cap), (B, 1)))
+        slot = np.tile(np.arange(C), (B, 1))
+        with torch.no_grad(), FlopCounterMode(display=False) as fc:
+            eng.batch_apply_replaces(st, slot, rng.integers(0, cfg.vocab, (B, C)))
+        rep = roofline.edit_step_roofline(eng.L, eng.meta, n_cap, C, R,
+                                          xla_flops=fc.get_total_flops(), xla_bytes=0,
+                                          weight_bytes=tensor_bytes(eng.W), batch=B,
+                                          d_ff=cfg.d_ff)
+        ms = max(rep.compute_s, rep.memory_s) * 1e3
+        floor += ms * calls
+        rows.append(dict(B=B, n_cap=n_cap, C=C, R=R, dispatches=calls, floor_ms=ms,
+                         **rep.summary()))
+        del st
+    return dict(peak_flops=roofline.PEAK_FLOPS, hbm_bw=roofline.HBM_BW, shapes=rows,
+                floor_ms_round=floor, device_busy_ms=busy_ms)
+
+
+@contextlib.contextmanager
+def dispatch_census(srv):
+    """Count the (B, n_cap, C, R) of ``srv``'s edit dispatches while the
+    block runs (its ``_count_shape`` calls). Yields the dict that fills."""
+    shapes: dict = {}
+    count = srv._count_shape
+
+    def counted(shape):
+        if shape[0] == "edit":
+            shapes[shape[1:]] = shapes.get(shape[1:], 0) + 1
+        return count(shape)
+
+    with mock.patch.object(srv, "_count_shape", counted):
+        yield shapes
+
+
+def train_4k_len() -> int:
+    """``SHAPES["train_4k"].seq_len`` of the port's ``launch/specs.py``."""
+    from repro_torch.launch.specs import SHAPES
+
+    return SHAPES["train_4k"].seq_len
 
 
 SWEEPS = ("delta_gate", "vq_assign", "patch", "gated_attention", "gated_attention_bwd")
@@ -3712,10 +4049,11 @@ def main() -> int:
 
     # ---- 8. where the time goes: one more profiled round on the served fleet
     t0 = time.perf_counter()
-    with fused_step_census() as census:
+    with fused_step_census() as census, dispatch_census(srv) as dispatches:
         prof = profile_round(srv, make_stream(
             cfg.vocab, seed=1, rounds=1, lens={d: srv.docs[d].n for d in docs})[0])
     prof["fused_step_shapes"] = census
+    prof["roofline"] = edit_roofline(srv, cfg, dispatches, prof["device_busy_ms"])
     emit("profile", seconds=time.perf_counter() - t0, nvidia_smi=smi, **prof)
 
     # ---- 9. forward: the model's own entry point
@@ -3792,6 +4130,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     ftr = family_train_phase()
     emit("family_train", seconds=time.perf_counter() - t0, nvidia_smi=smi, **ftr)
+
+    # ---- 21. grid: the model axis, expert-parallel MoE at deepseek-v2 width
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    grd = grid_phase()
+    emit("grid", seconds=time.perf_counter() - t0, nvidia_smi=smi, **grd)
 
     # ---- summary
     c72 = next(f for f in fused if f["C"] == 72 and f["mask"] == "random")

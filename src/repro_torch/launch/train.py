@@ -10,9 +10,16 @@ h2o-danube, gemma3), hymba, rwkv6 and the MLA / MoE stacks (deepseek-v2,
 -v3 with its MTP loss), each with ``--vqt`` where VQT applies. The VLM and
 audio archs (internvl2, musicgen) train through ``make_train_step`` with
 their patch embeddings or codebook tokens, which the synthetic corpus does
-not make. Without ``--device cpu`` it trains on the card. ``--mesh host``
-(one device) is the only mesh: the reference's production meshes
-(``single``, ``pod``) come with ROADMAP Queue A item 11.
+not make. Without ``--device cpu`` it trains on the card.
+
+As in the reference, every step runs under a grid (``use_mesh``):
+``--mesh host`` (the default) is a 1x1 ("data", "model") grid of the one
+device, so a MoE layer goes through the expert-parallel
+``moe_apply_ep`` at one model slice, with the reference's fixed capacity.
+``--mesh single`` / ``pod`` build the reference's (16, 16) and
+(2, 16, 16) grids of CUDA devices and raise ``make_mesh``'s
+``ValueError`` on a machine with fewer cards; running a step split
+across cards is ROADMAP Queue A's next item.
 """
 from __future__ import annotations
 
@@ -25,7 +32,28 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import save_train_state
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticCorpus, lm_batches
+from repro_torch.distributed.context import use_mesh
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.training import make_schedule, make_train_step, train_state_init
+
+
+def make_grid(mesh: str, device):
+    """The grid ``--mesh`` names: the host grid of ``device``, or a
+    production grid of CUDA devices (raises with fewer visible)."""
+    if mesh == "host":
+        return make_host_mesh(device)
+    return make_production_mesh(multi_pod=mesh == "pod")
+
+
+def grid_step(step_fn, grid):
+    """``step_fn`` run under ``use_mesh(grid)``, as the reference's
+    launcher runs its jitted step inside the mesh context."""
+
+    def run(state, batch, **kw):
+        with use_mesh(grid):
+            return step_fn(state, batch, **kw)
+
+    return run
 
 
 def main(argv=None):
@@ -46,19 +74,17 @@ def main(argv=None):
                     help="cuda (default) or cpu (the plain PyTorch path)")
     args = ap.parse_args(argv)
 
-    if args.mesh != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} needs the production meshes of ROADMAP Queue A item 11")
     device = resolve_device(args.device)
     kwargs = {"vqt": True} if args.vqt else {}
     cfg = get_config(args.arch, smoke=args.smoke, **kwargs)
     print(f"arch={cfg.name} layers={cfg.n_layers} d={cfg.d_model} vocab={cfg.vocab}")
+    grid = make_grid(args.mesh, device)
 
     sched = make_schedule(peak_lr=args.lr, warmup_steps=args.warmup,
                           total_steps=args.steps, final_lr=args.lr / 10)
     corpus = SyntheticCorpus(vocab=cfg.vocab, seed=0)
     state = train_state_init(cfg, generator=torch.Generator().manual_seed(0), device=device)
-    step_fn = make_train_step(cfg, sched, accum_steps=args.accum)
+    step_fn = grid_step(make_train_step(cfg, sched, accum_steps=args.accum), grid)
     t0 = time.time()
     for i, batch in enumerate(
         lm_batches(corpus, batch=args.batch, seq_len=args.seq, steps=args.steps,

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts (DeepSeek-V2/V3 style) — the dense path of
-``repro/models/moe.py``.
+"""Mixture-of-Experts (DeepSeek-V2/V3 style) — ``repro/models/moe.py`` on
+the port.
 
 ``moe_apply_dense`` computes the reference's function: a softmax router in
 f32, the top-k experts a token renormalized (DeepSeek), a Switch-style
@@ -18,9 +18,19 @@ carries the gradient through the gates, the experts and the router's
 probabilities in the aux loss; the top-k assignment counts carry none, as
 in the reference.
 
-Without a mesh the reference's ``moe_apply`` is this dense path, and so is
-the port's. The expert-parallel ``moe_apply_ep`` is ROADMAP Queue A item
-9d. With VQT the router's inputs are functions of quantized activations,
+``moe_apply_ep`` is the reference's expert-parallel path over the
+``"model"`` axis of the active grid (``distributed.context.use_mesh``).
+The reference maps a function over the mesh with ``shard_map``; the port
+loops over the grid's data rows and model indices, each slice on its grid
+entry's device: a fixed-capacity dispatch (cumsum slotting, assignments
+past ``capacity_factor`` dropped), the ``all_to_all`` as copies of
+``[E_loc, cap, d]`` blocks to the experts' owners, one grouped product a
+owner, the copies back, the gates. ``moe_apply`` is ``moe_apply_ep``, as
+in the reference, so it is the dense path whenever no grid is active.
+``place_experts`` lays the expert stacks out once by the grid's plan
+(``launch.sharding``), each slice resident on its device.
+
+With VQT the router's inputs are functions of quantized activations,
 so ``moe_per_code`` routes and runs the experts once per codebook row of a
 ``core.compressed.Compressed`` tensor.
 
@@ -31,10 +41,15 @@ width ``n_shared · f``); f = ``d_ff_expert``.
 """
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.context import get_ctx
 from repro_torch.models import normal
 from repro_torch.models.ffn import ffn_apply
 
@@ -100,10 +115,195 @@ def moe_apply_dense(params: dict, cfg: ArchConfig,
     return y.reshape(b, n, d), aux
 
 
+_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def _ep_capacity(t2: int, e, n_experts: int) -> int:
+    cap = int(math.ceil(t2 * e.top_k / n_experts * e.capacity_factor))
+    return max(8, cap)
+
+
+def grid_rows(grid) -> np.ndarray:
+    """[D, M] devices of ``grid`` (axes among "pod", "data", "model"): the
+    data rows (the "pod" and "data" axes, row-major, as the reference
+    splits the batch) by the model axis."""
+    names = grid.axis_names
+    data = [names.index(a) for a in ("pod", "data") if a in names]
+    model = [names.index("model")] if "model" in names else []
+    if len(data) + len(model) != len(names):
+        raise ValueError(f"grid axes {names}: expected only pod, data and model")
+    D = int(np.prod([grid.devices.shape[i] for i in data]))
+    return np.transpose(grid.devices, data + model).reshape(D, -1)
+
+
+@dataclass
+class ExpertPlacement:
+    """The expert stacks laid out by a grid's plan: ``experts[(m, device)]``
+    holds model index m's ``[E/M, ...]`` slices of the three expert leaves
+    on ``device``; ``router[device]`` the replicated router."""
+    grid: object
+    experts: dict
+    router: dict
+
+
+def place_experts(params: dict, grid) -> dict:
+    """``params`` with its expert stacks placed once on ``grid`` by
+    ``launch.sharding``'s plan (``P("model", None, None)``: slice m of the
+    experts on every entry of model index m, copied there) and the router
+    replicated on each device. The returned dict holds no whole expert
+    leaf, so the caller may free the originals; ``moe_apply_ep`` under
+    ``use_mesh(grid)`` reads the slices where they sit."""
+    from repro_torch.distributed.context import NamedSharding, PartitionSpec as P
+
+    names = grid.axis_names
+    spec = P("model", None, None) if "model" in names else P(None, None, None)
+    m_axis = names.index("model") if "model" in names else None
+    experts: dict = {}
+    for name in _EXPERT_LEAVES:
+        leaf = params[name]
+        for idx, sl in NamedSharding(grid, spec).blocks(tuple(leaf.shape)).items():
+            dev = torch.device(grid.devices[idx])
+            slot = experts.setdefault((0 if m_axis is None else idx[m_axis], dev), {})
+            if name not in slot:
+                slot[name] = leaf[sl].to(dev, copy=True)
+    router = {}
+    for dev in grid.devices.flat:
+        dev = torch.device(dev)
+        if dev not in router:
+            router[dev] = params["router"].to(dev, copy=True)
+    out = {k: v for k, v in params.items() if k not in _EXPERT_LEAVES}
+    out["placed"] = ExpertPlacement(grid=grid, experts=experts, router=router)
+    return out
+
+
+def _slice_weights(params: dict, m: int, dev: torch.device, E_loc: int) -> tuple:
+    """Model index m's expert slices on ``dev``: from the placement, or
+    sliced from the whole leaves (a view where they already sit on ``dev``)."""
+    placed = params.get("placed")
+    if placed is not None:
+        w = placed.experts[(m, dev)]
+        return tuple(w[k] for k in _EXPERT_LEAVES)
+    sl = slice(m * E_loc, (m + 1) * E_loc)
+    return tuple(params[k][sl].to(dev) for k in _EXPERT_LEAVES)
+
+
+def _router_on(params: dict, dev: torch.device) -> dict:
+    placed = params.get("placed")
+    return {"router": placed.router[dev] if placed is not None else params["router"].to(dev)}
+
+
+# what the expert-parallel calls moved since ``reset_ep_stats``: calls;
+# bytes of the [E_loc, cap, d] blocks exchanged between distinct grid
+# entries (the reference's two all_to_alls); bytes that crossed between
+# distinct devices (tokens out and back, blocks); and the last call's kept
+# assignments a slice, by (data row, model index): [T2·k] bool tensors,
+# token-major, False where an assignment was dropped
+EP_STATS: dict = {}
+
+
+def reset_ep_stats() -> None:
+    EP_STATS.update(calls=0, exchange_bytes=0, device_copy_bytes=0, kept={})
+
+
+reset_ep_stats()
+
+
+def _grouped_ffn(w_gate, w_up, w_down, xs: torch.Tensor) -> torch.Tensor:
+    """xs [E_loc, C, d] grouped tokens; weights [E_loc, ...]."""
+    g = F.silu(torch.bmm(xs, w_gate))
+    return torch.bmm(g * torch.bmm(xs, w_up), w_down)
+
+
+def moe_apply_ep(params: dict, cfg: ArchConfig,
+                 x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE over the active grid; the dense path without one.
+    x [b, n, d] -> (y [b, n, d] on x's device, aux).
+
+    For data row r (b/D documents) and model index m, on device
+    ``grid[r, m]``: the row's tokens padded to T2·M, slice m's T2 tokens
+    routed, and each assignment slotted into its expert's bucket by an
+    exclusive cumsum in token-major order (the reference's); those at or
+    past ``cap`` are dropped (they go to a dump slot, never index −1). The
+    [E, cap, d] buckets go to the owners as [E_loc, cap, d] blocks; owner j
+    runs its experts once over [E_loc, M·cap, d] and sends each slice its
+    block back, where the gated outputs are summed a token. The shared
+    experts run on each row's tokens in full (the dense function: the
+    reference's ``shard_map`` adds only each model slice's share of them,
+    which at M > 1 drops (M−1)/M of their output). aux is the mean of the
+    slices' aux, as the reference's. Differentiable: the copies between
+    devices, index copies and gathers all carry gradients."""
+    ctx = get_ctx()
+    if ctx is None:
+        return moe_apply_dense(params, cfg, x)
+    e = cfg.moe
+    b, n, d = x.shape
+    E, k = e.n_experts, e.top_k
+    rows = grid_rows(ctx.mesh)
+    D, M = rows.shape
+    if E % M:
+        raise ValueError(f"experts {E} must divide model axis {M}")
+    if b % D:
+        raise ValueError(f"batch {b} does not split over the {D} data rows of {ctx.mesh}")
+    placed = params.get("placed")
+    if placed is not None and not (placed.grid.axis_names == ctx.mesh.axis_names
+                                   and np.array_equal(placed.grid.devices, ctx.mesh.devices)):
+        raise ValueError(f"experts are placed on {placed.grid}, not on the active {ctx.mesh}")
+    E_loc, b_loc = E // M, b // D
+    T_loc = b_loc * n
+    T2 = -(-T_loc // M)  # tokens each model slice is responsible for
+    cap = _ep_capacity(T2, e, E)
+    block = E_loc * cap * d * x.element_size()
+    home = x.device
+    ys, auxes = [], []
+    for r in range(D):
+        devs = [torch.device(dv) for dv in rows[r]]
+        xb = x[r * b_loc:(r + 1) * b_loc].reshape(T_loc, d)
+        xt = torch.cat([xb, xb.new_zeros(T2 * M - T_loc, d)]) if T2 * M > T_loc else xb
+        sends, slots = [], []
+        for m, dev in enumerate(devs):
+            x_mine = xt[m * T2:(m + 1) * T2].to(dev)
+            gates, eidx, aux = _router(_router_on(params, dev), e, x_mine)
+            flat_e = eidx.reshape(-1)  # [T2·k], token-major
+            onehot = F.one_hot(flat_e, E)
+            pos = ((onehot.cumsum(0) - onehot) * onehot).sum(1)  # place in the bucket
+            keep = pos < cap
+            dst = flat_e * (cap + 1) + torch.where(keep, pos, torch.full_like(pos, cap))
+            src = x_mine[:, None].expand(T2, k, d).reshape(T2 * k, d)
+            buf = x_mine.new_zeros(E * (cap + 1), d).index_copy(0, dst, src)
+            sends.append(buf.view(E, cap + 1, d)[:, :cap].reshape(M, E_loc, cap, d))
+            slots.append((dst, gates))
+            auxes.append(aux.to(home))
+            EP_STATS["kept"][(r, m)] = keep
+            EP_STATS["device_copy_bytes"] += (T2 * d * x.element_size()) * 2 * (dev != home)
+        outs = []
+        for j, dev in enumerate(devs):  # owner j: its experts over every slice's block
+            grouped = torch.stack([sends[m][j].to(dev) for m in range(M)], 1)
+            w = _slice_weights(params, j, dev, E_loc)
+            outs.append(_grouped_ffn(*w, grouped.reshape(E_loc, M * cap, d))
+                        .view(E_loc, M, cap, d))
+        parts = []
+        for m, dev in enumerate(devs):
+            ret = torch.cat([outs[j][:, m].to(dev) for j in range(M)])  # [E, cap, d]
+            ret = torch.cat([ret, ret.new_zeros(E, 1, d)], 1).view(E * (cap + 1), d)
+            dst, gates = slots[m]
+            vals = ret.index_select(0, dst) * gates.reshape(-1, 1).to(ret.dtype)
+            parts.append(vals.view(T2, k, d).sum(1).to(home))
+        EP_STATS["exchange_bytes"] += 2 * M * (M - 1) * block
+        EP_STATS["device_copy_bytes"] += 2 * block * sum(
+            devs[m] != devs[j] for m in range(M) for j in range(M))
+        y = torch.cat(parts)[:T_loc]
+        if "shared" in params:
+            y = y + ffn_apply("swiglu", params["shared"], xb)
+        ys.append(y.view(b_loc, n, d))
+    EP_STATS["calls"] += 1
+    return torch.cat(ys), torch.stack(auxes).mean()
+
+
 def moe_apply(params: dict, cfg: ArchConfig,
               x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The reference's ``moe_apply`` without a mesh: the dense path."""
-    return moe_apply_dense(params, cfg, x)
+    """The reference's ``moe_apply``: expert-parallel under a grid, dense
+    without one."""
+    return moe_apply_ep(params, cfg, x)
 
 
 def moe_per_code(params: dict, cfg: ArchConfig, c):

@@ -71,6 +71,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, LayerCfg
 from repro_torch.core import vq as vq_mod
+from repro_torch.distributed.context import get_ctx, with_ctx
 from repro_torch.models import normal
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.attention import (
@@ -315,7 +316,9 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     layer body — ``torch.utils.checkpoint`` (``remat``, the reference's
     ``jax.checkpoint``) recomputes the body in the backward and does not
     replay an explicit generator. ``vq_noise``, a list indexed by the
-    layer's global index, overrides the draws."""
+    layer's global index, overrides the draws. A layer body runs under the
+    sharding context of its forward (``distributed.context.with_ctx``), in
+    its recompute too."""
     b, n = tokens.shape[:2]
     if positions is None:
         positions = torch.arange(n, dtype=torch.int32, device=tokens.device).expand(b, n)
@@ -338,7 +341,7 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             for layer, lp in zip(pattern, spr):
                 if train:
                     noise = _layer_noise(cfg, layer, x, li, rng, vq_noise)
-                    body = partial(_layer_fwd, lp, cfg, layer, train=True)
+                    body = with_ctx(get_ctx(), partial(_layer_fwd, lp, cfg, layer, train=True))
                     x, a = (checkpoint(body, x, positions, noise, use_reentrant=False,
                                        preserve_rng_state=False)
                             if remat else body(x, positions, noise))

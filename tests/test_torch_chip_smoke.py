@@ -623,3 +623,83 @@ def test_family_train_cuts_keep_the_published_widths(arch, depth, layers, sigma)
     assert cfg.n_layers == len(cfg.layer_list()) == layers
     assert cs.sigma_layers(cfg) == sigma
     assert dict(cs.FAMILY_TRAIN)[arch] == depth
+
+
+def test_grid_phase_gates_pass_on_the_cpu(monkeypatch):
+    """Phase 21's gates at smoke size on the CPU: deepseek-v2's smoke MoE
+    layer (4 experts top-2, one shared) on 64 tokens through
+    ``moe_apply_ep`` on (1, 1), (1, 2) and (1, 4) grids of ``"cpu"``
+    against dense (nothing dropped at the raised capacity; the
+    config's capacity printed a slice), the experts placed on a (1, 2)
+    grid of two CPU entries against the one-entry grid; then the (2, 2)
+    and (1, 1) train steps of the smoke config against the CPU's and the
+    launcher's ``--mesh host`` step through ``moe_apply_ep``."""
+    from repro_torch.configs import get_config
+
+    _stub_card(monkeypatch)
+    cfg = get_config("deepseek-v2-236b", smoke=True)
+    out = cs.grid_phase(cfg=cfg, n=64, grids=((1, 1), (1, 2), (1, 4)),
+                        cards=["cpu", "cpu"], device="cpu")
+    layer = out["routed_layer"]
+    assert layer["experts"] == 4 and layer["raised_capacity_factor"] == 2.0
+    for name, res in layer["grids"].items():
+        M = int(name.split("x")[1])
+        assert res["raised"]["dropped_per_slice"] == [0] * M
+        assert res["raised"]["max_abs_err_vs_dense"] < 2e-5
+        assert res["config"]["max_abs_err_vs_dense"] < 2e-5
+        assert len(res["config"]["dropped_per_slice"]) == M
+        assert (res["raised"]["exchange_bytes"] > 0) == (M > 1)
+        assert res["config"]["ms"] == 1.0 and "device_idle_share" in res["config"]["profile"]
+    assert layer["cards"]["bitwise"] and layer["cards"]["max_abs_err_vs_one_card"] == 0.0
+    train = out["train"]
+    for shape in ("2x2", "1x1"):
+        assert train[shape]["loss_diff"] == 0.0 and train[shape]["grad_max_rel_err"] < 1e-6
+    assert train["launcher_host"]["ep_calls"] >= train["launcher_host"]["moe_layers"] >= 1
+
+
+def test_edit_roofline_prices_each_dispatch_shape(monkeypatch):
+    """Phase 8's roofline on the CPU: a smoke ``BatchServer`` round's
+    dispatch shapes, each priced by ``launch.roofline`` with the engine's
+    weight bytes, and a counted dispatch (the plain versions' aten ops on
+    the CPU, so more FLOPs than the analytic floor)."""
+    import numpy as np
+
+    from repro_torch.configs.vq_opt_125m import smoke_config
+    from repro_torch.core.edits import Edit
+    from repro_torch.launch import roofline
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.batch_server import BatchServer
+
+    cfg = smoke_config()
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    srv = BatchServer(params, cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    srv.open_documents({d: [int(t) for t in rng.integers(0, cfg.vocab, n)]
+                        for d, n in (("a", 24), ("b", 40))})
+    with cs.dispatch_census(srv) as shapes:
+        for d in ("a", "b"):
+            srv.submit_edit(d, Edit("replace", 3, 7))
+        srv.flush()
+    assert sum(shapes.values()) == srv.stats.batch_steps >= 1
+    out = cs.edit_roofline(srv, cfg, shapes, busy_ms=2.5)
+    assert (out["peak_flops"], out["hbm_bw"]) == (67e12, 3.35e12)
+    assert out["device_busy_ms"] == 2.5
+    for row in out["shapes"]:
+        eng = srv.engine(row["C"], row["R"])
+        want = roofline.edit_step_roofline(eng.L, eng.meta, row["n_cap"], row["C"], row["R"],
+                                           xla_flops=row["xla_flops"], xla_bytes=0,
+                                           weight_bytes=cs.tensor_bytes(eng.W), batch=row["B"],
+                                           d_ff=cfg.d_ff)
+        assert row["analytic_flops"] == want.analytic_flops
+        assert row["floor_ms"] == max(want.compute_s, want.memory_s) * 1e3 > 0
+        assert row["xla_flops"] > row["analytic_flops"] > 0
+    assert out["floor_ms_round"] == pytest.approx(
+        sum(r["floor_ms"] * r["dispatches"] for r in out["shapes"]))
+
+
+def test_family_train_length_is_the_train_4k_shape():
+    """Phase 20's sequence length is ``SHAPES["train_4k"].seq_len`` of the
+    port's ``launch/specs.py``, the reference's 4096."""
+    from repro.launch.specs import SHAPES
+
+    assert cs.train_4k_len() == SHAPES["train_4k"].seq_len == 4096

@@ -1,8 +1,7 @@
 """``python -m repro_torch.launch.serve`` on the CPU: the default
 single-document op-count mode prints the reference's lines, the tiered,
-async and fleet demos run end to end with ``--smoke --device cpu``, and the
-launchers' modes not ported yet (``launch.train``'s production meshes)
-raise with the ROADMAP item that owns them. ``--ckpt`` is held in
+async and fleet demos run end to end with ``--smoke --device cpu``, and
+``launch.train``'s production grids raise naming the devices they need. ``--ckpt`` is held in
 ``tests/test_torch_pytree_checkpoint.py``."""
 import argparse
 import re
@@ -74,10 +73,12 @@ def test_single_document_mode_is_the_default(capsys):
     assert "totals: edits=3 defrags=0" in out
 
 
-@pytest.mark.parametrize("argv,item", [(["--mesh", "single"], "item 11"),
-                                       (["--mesh", "pod"], "item 11")])
+@pytest.mark.parametrize("argv,item", [(["--mesh", "single"], "16x16 grid needs 256 devices"),
+                                       (["--mesh", "pod"], "2x16x16 grid needs 512 devices")])
 def test_modes_not_ported_raise(argv, item):
+    """The production grids need their cards: with fewer visible, the
+    launcher raises ``make_mesh``'s error naming the count."""
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         train.main(["--arch", "vq-opt-125m", "--smoke", "--device", "cpu", *argv])
