@@ -3201,7 +3201,6 @@ def card_vs_cpu_step(cfg, b: int, n: int, seed: int = 0, device=None, grids=None
     from repro_torch.core import vq as vq_mod
     from repro_torch.data import SyntheticCorpus, lm_batches
     from repro_torch.distributed.context import use_mesh
-    from repro_torch.models.moe import grid_rows
     from repro_torch.models.transformer import init_params, params_from_numpy
     from repro_torch.training.step import lm_loss, value_and_grad
 
@@ -3213,7 +3212,7 @@ def card_vs_cpu_step(cfg, b: int, n: int, seed: int = 0, device=None, grids=None
     L = n_layers(cfg)
     n_vq = 0 if cfg.vqt is None else sum(layer.mixer != "rwkv6" for layer in cfg.layer_list())
     n_moe = sum(layer.ffn == "moe" for layer in cfg.layer_list())
-    n_moe *= 1 if grids is None else grid_rows(grids[0]).size  # router calls a forward
+    n_moe *= 1 if grids is None else grids[0].devices.size  # router calls a forward
     grids = grids or (None, None)
     _, launches = launch_counters()
     ties, flips, route_tie, route_flip = [], [], [], []
@@ -3815,6 +3814,313 @@ def grid_phase(cfg=None, n: int = 1024, train_cfg=None, train_b: int = 2, train_
     return out
 
 
+SHARDED_GRIDS = ((2, 2), (1, 4))  # phase 22 (a): (data, model) grids whose entries repeat the card
+SHARDED_PHI4 = (4, 2048, (1, 2))  # phase 22 (b): phi4-mini's layers, tokens and grid
+SHARDED_CARDS = (4, 2)  # phase 22 (c): the most cards of a (1, k) grid across cards
+
+
+def grid_of(shape, devices) -> object:
+    """A (data, model) grid of ``shape`` over ``devices`` (one device
+    repeated, or one card an entry)."""
+    from repro_torch.launch.mesh import make_mesh
+
+    k = int(np.prod(shape))
+    devices = list(devices)
+    return make_mesh(shape, GRID_AXES, devices if len(devices) >= k else devices[:1] * k)
+
+
+def grid_grads(params, cfg, batch: dict, noise, grid, placed: bool) -> dict:
+    """``lm_loss`` and its gradients under ``grid`` with the given noise:
+    the parameters placed by the plan (``place``; the gradients reduced
+    over the replicas and assembled) or laid out in the forward; the VQ
+    calls' codes and top-two gaps a layer (rows joined); seconds; the
+    kernels' launches; the collectives' bytes by kind."""
+    from repro_torch.distributed.context import (
+        GRID_STATS, grid_index_rows, reduce_replicas, reset_grid_stats, use_mesh,
+    )
+    from repro_torch.launch.sharding import place, unplace
+    from repro_torch.training.step import lm_loss, value_and_grad
+
+    D = len(grid_index_rows(grid))
+    dev = torch.device(grid.devices.flat[0])
+    _, launches = launch_counters()
+    reset_launches()
+    reset_grid_stats()
+    sync_all(dev)
+    t0 = time.perf_counter()
+    with use_mesh(grid), recorded_vq_train() as calls:
+        p = place(params, grid) if placed else params
+        loss, _, grads = value_and_grad(lm_loss, p, cfg, batch, None, vq_noise=noise)
+        if placed:
+            grads = unplace(reduce_replicas(grads))
+    sync_all(dev)
+    seconds = time.perf_counter() - t0
+    L = n_layers(cfg) if cfg.vqt is not None else 0
+    fwd = calls[:L * D]  # the forward's (the recompute's follow)
+    codes = [(torch.cat([c["idx"] for c in fwd[li * D:(li + 1) * D]]),
+              torch.cat([c["gap"] for c in fwd[li * D:(li + 1) * D]])) for li in range(L)]
+    return dict(loss=float(loss), grads=grads, codes=codes, seconds=seconds,
+                launches={k: v for k, v in launches().items() if v},
+                collective_bytes=dict(GRID_STATS["bytes"]),
+                device_bytes=dict(GRID_STATS["device_bytes"]))
+
+
+def sharded_check(params, cfg, b: int, n: int, grids: dict, device, placed=True,
+                  seed: int = 0) -> dict:
+    """One train step's loss and gradients of ``cfg`` at [b, n] under each
+    of ``grids`` ({name: grid}) against the 1x1 grid of ``device``, with
+    the same Gumbel noise (drawn for the whole batch, sliced to the rows):
+    the loss within ``TRAIN_LOSS_TOL``, every gradient leaf within
+    ``TRAIN_GRAD_TOL`` of its max. A VQ code that differs at a near tie
+    (top two Gumbel logits within ``TRAIN_TIE``, ``first_layer_flips``)
+    redraws the noise, up to ``TRAIN_DRAWS`` draws."""
+    from repro_torch.common.pytree import path_names, tree_flatten_with_path
+    from repro_torch.core import vq as vq_mod
+    from repro_torch.data import SyntheticCorpus, lm_batches
+
+    device = torch.device(device)
+    batch = next(lm_batches(SyntheticCorpus(vocab=cfg.vocab, seed=0), batch=b, seq_len=n,
+                            steps=1, pos_pool=cfg.pos_pool if cfg.pos == "sampled" else None))
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    one = grid_of((1, 1), [device])
+    L = n_layers(cfg)
+    grid_grads(params, cfg, batch, None, one, placed=False)  # warm: cuBLAS's first calls
+    flips = []
+    for draw in range(TRAIN_DRAWS):
+        gen = torch.Generator(device=device).manual_seed(seed + 1 + draw)
+        noise = None if cfg.vqt is None else [
+            vq_mod.gumbel(gen, (b, n, cfg.vqt.n_heads, cfg.vqt.codebook_size)) for _ in range(L)]
+        base = grid_grads(params, cfg, batch, noise, one, placed=False)
+        runs = {name: grid_grads(params, cfg, batch, noise, g, placed)
+                for name, g in grids.items()}
+        flips.append({name: first_layer_flips(
+            torch.stack([a[0] != c[0] for a, c in zip(base["codes"], r["codes"])]),
+            lambda li, r=r: (base["codes"][li][1], r["codes"][li][1]), TRAIN_TIE,
+            f"sharded step {name}") if r["codes"] else 0 for name, r in runs.items()})
+        if not any(flips[-1].values()):
+            break
+        del runs
+    else:
+        raise AssertionError(f"sharded step: a VQ code flipped at a near tie in each of "
+                             f"{TRAIN_DRAWS} draws ({flips})")
+    out = {"b": b, "n": n, "layers": L, "loss_1x1": base["loss"], "seconds_1x1": base["seconds"],
+           "launches_1x1": base["launches"], "noise_draws": len(flips),
+           "near_tie_flips": flips, "grids": {}}
+    want = dict(tree_flatten_with_path(base["grads"]))
+    for name, r in runs.items():
+        diff = abs(r["loss"] - base["loss"])
+        if diff > TRAIN_LOSS_TOL * max(1.0, abs(base["loss"])):
+            raise AssertionError(f"sharded step {name}: loss {r['loss']} against the 1x1 "
+                                 f"grid's {base['loss']}")
+        err = {}
+        for path, g in tree_flatten_with_path(r["grads"]):
+            w = want[path]
+            err["/".join(path_names(path))] = float((g - w).abs().max()) / max(
+                float(w.abs().max()), 1e-30)
+        worst = max(err, key=err.get)
+        if err[worst] > TRAIN_GRAD_TOL:
+            raise AssertionError(f"sharded step {name}: gradient {worst} differs by "
+                                 f"{err[worst]} of its max (tolerance {TRAIN_GRAD_TOL})")
+        out["grids"][name] = dict(loss=r["loss"], loss_diff=diff, grad_max_rel_err=err[worst],
+                                  grad_worst_leaf=worst, seconds=r["seconds"],
+                                  launches=r["launches"], collective_bytes=r["collective_bytes"],
+                                  device_bytes=r["device_bytes"])
+    return out
+
+
+def sharded_state_steps(cfg, b: int, n: int, grids: dict, share=False) -> dict:
+    """The train step on a state drawn on the CPU from seed 0 and placed on
+    each of ``grids`` (each card receives its blocks): every replica of
+    every leaf (one copy an entry with ``share=False``, as on distinct
+    cards) bitwise equal after the update; ms a step (host clock over the
+    grid's cards, the second of two steps), the launches a step, the
+    collectives' bytes by kind, each card's resident and peak bytes."""
+    from repro_torch.data import SyntheticCorpus, lm_batches
+    from repro_torch.distributed.context import GRID_STATS, reset_grid_stats, use_mesh
+    from repro_torch.launch.sharding import place_state
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.training import make_schedule, make_train_step, train_state_init
+
+    batches = list(lm_batches(SyntheticCorpus(vocab=cfg.vocab, seed=0), batch=b, seq_len=n,
+                              steps=2, pos_pool=cfg.pos_pool if cfg.pos == "sampled" else None))
+    step = make_train_step(cfg, make_schedule(peak_lr=6e-4, warmup_steps=1, total_steps=2))
+    _, launches = launch_counters()
+    host = train_state_init(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    out = {}
+    for name, grid in grids.items():
+        device = torch.device(grid.devices.flat[0])
+        on_card = device.type == "cuda"
+        cards = sorted({str(d) for d in grid.devices.flat})
+        state = place_state(host, grid, share=share)
+        gc.collect()
+        if on_card:
+            for c in cards:
+                torch.cuda.reset_peak_memory_stats(c)
+        resident = {c: torch.cuda.memory_allocated(c) / 1e9 for c in cards} if on_card else None
+        with use_mesh(grid):
+            state, m0 = step(state, batches[0])
+            sync_all(device)
+            reset_launches()
+            reset_grid_stats()
+            t0 = time.perf_counter()
+            state, m1 = step(state, batches[1])
+            sync_all(device)
+            ms = (time.perf_counter() - t0) * 1e3
+        losses = [float(m0["lm_loss"]), float(m1["lm_loss"])]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"sharded steps {name}: a loss is not finite: {losses}")
+        replicas = unequal = 0
+        for tree in (state.params, state.opt.mu, state.opt.nu):
+            for leaf in tree_leaves(tree):
+                for held in leaf.replicas():
+                    replicas += len(held) - 1
+                    first = held[0][1]
+                    unequal += sum(not torch.equal(first, t.to(first.device))
+                                   for _, t in held[1:])
+        if unequal:
+            raise AssertionError(f"sharded steps {name}: {unequal} of {replicas} replicas "
+                                 "differ after the update")
+        out[name] = dict(cards=cards, lm_loss=losses, ms_step=ms,
+                         launches_per_step={k: v for k, v in launches().items() if v},
+                         collective_bytes=dict(GRID_STATS["bytes"]),
+                         device_bytes=dict(GRID_STATS["device_bytes"]),
+                         replicas_checked=replicas, replicas_bitwise=True,
+                         resident_gb=resident,
+                         peak_gb={c: torch.cuda.max_memory_allocated(c) / 1e9 for c in cards}
+                         if on_card else None)
+        del state
+    return out
+
+
+def deepseek_cards_steps(cfg, n: int, cards: list, steps: int = 2) -> dict:
+    """Phase 22 (d): ``cfg`` (deepseek-v2 at full width, its dense layer
+    and one MoE layer, VQT) trained on a (1, k) grid of ``cards``: the
+    parameters drawn on the first card's generator, placed by the plan
+    and the whole leaves freed, the AdamW moments made on each card's
+    blocks; ``steps`` steps at [1, n]: every loss finite; ms a step (host
+    clock over the cards), each card's resident and peak bytes, the bytes
+    that crossed cards a step."""
+    from repro_torch.common.pytree import tensor_leaves, tree_leaves
+    from repro_torch.data import SyntheticCorpus, lm_batches
+    from repro_torch.distributed.context import GRID_STATS, reset_grid_stats, use_mesh
+    from repro_torch.launch.sharding import place
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import make_schedule, make_train_step
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.step import TrainState
+
+    grid = grid_of((1, len(cards)), cards)
+    names = [str(c) for c in cards]
+    on_card = cards[0].type == "cuda"
+    whole = init_params(cfg, generator=torch.Generator(device=cards[0]).manual_seed(0),
+                        device=cards[0])
+    params = place(whole, grid)
+    del whole
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    state = TrainState(params=params, opt=adamw_init(params),
+                       rng=torch.tensor([0, 0], dtype=torch.int64))
+    n_params = sum(int(np.prod(leaf.shape)) for leaf in tree_leaves(params))
+    resident = {c: torch.cuda.memory_allocated(c) / 1e9 for c in names} if on_card else None
+    if on_card:
+        for c in names:
+            torch.cuda.reset_peak_memory_stats(c)
+    step = make_train_step(cfg, make_schedule(peak_lr=6e-4, warmup_steps=1, total_steps=steps))
+    batches = lm_batches(SyntheticCorpus(vocab=cfg.vocab, seed=0), batch=1, seq_len=n,
+                         steps=steps)
+    losses, ms, crossed = [], [], []
+    with use_mesh(grid):
+        for batch in batches:
+            reset_grid_stats()
+            sync_all(cards[0])
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            sync_all(cards[0])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["lm_loss"]))
+            crossed.append(dict(GRID_STATS["device_bytes"]))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"deepseek-v2 on {len(cards)} cards: a loss is not finite: {losses}")
+    out = dict(layers=n_layers(cfg), parameters=n_params, n=n, lm_loss=losses, step_ms=ms,
+               resident_gb=resident,
+               peak_gb={c: torch.cuda.max_memory_allocated(c) / 1e9 for c in names}
+               if on_card else None,
+               bytes_across_cards=crossed[-1],
+               tensors_a_card={c: sum(t.device == torch.device(c)
+                                      for t in tensor_leaves(state.params)) for c in names})
+    del state
+    return out
+
+
+def sharded_phase(cfg=None, b: int = 8, n: int = 1024, phi4=SHARDED_PHI4, grids=SHARDED_GRIDS,
+                  device=None) -> dict:
+    """Phase 22: the train step run by the sharding plan across a grid.
+    (a) ``cfg`` (default VQ-OPT-125M at full width and depth, weights from
+    seed 0 on the CPU) at [b, n], remat on: ``sharded_check`` under each
+    of ``grids`` (entries repeating the card, the parameters placed)
+    against the 1x1 grid, then ``sharded_state_steps`` (one copy an entry:
+    the replicas bitwise after the update). (b) phi4-mini-3.8B VQT at full
+    width cut to ``phi4[0]`` layers (weights on the card's generator) at
+    [1, phi4[1]]: ``sharded_check`` under a ``phi4[2]`` grid of the card,
+    laid out in the forward (GQA 24 : 8 and dh 128 a block). (c) with two
+    or more cards, VQ-OPT's placed steps on a (1, k) grid of k cards
+    against (a)'s one-card numbers: resident bytes a card, bytes across
+    cards. (d) deepseek-v2 at full width, 2 layers, on a (1, 4) grid of
+    cards: with four cards only."""
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.configs.vq_opt_125m import config
+    from repro_torch.models.transformer import init_params
+
+    device = torch.device(device or DEVICE)
+    cfg = cfg or config()
+    laps, lap = stopwatch()
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    named = {"x".join(map(str, s)): grid_of(s, [device]) for s in grids}
+    out = {"vq_opt": sharded_check(params, cfg, b, n, named, device)}
+    del params
+    lap("a_check")
+    out["vq_opt_steps"] = sharded_state_steps(cfg, b, n, named)
+    lap("a_steps")
+    layers, pn, pshape = phi4
+    pcfg = family_train_cfg("phi4-mini-3.8b", layers) if isinstance(layers, int) else layers
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    pp = init_params(pcfg, generator=torch.Generator(device=device).manual_seed(0),
+                     device=device)
+    out["phi4"] = sharded_check(pp, pcfg, 1, pn, {"x".join(map(str, pshape)): grid_of(
+        pshape, [device])}, device, placed=False)
+    out["phi4"]["parameters"] = sum(p.numel() for p in tree_leaves(pp))
+    del pp
+    lap("b_phi4")
+    count = torch.cuda.device_count() if device.type == "cuda" else 1
+    if count >= 2:
+        k = next(c for c in SHARDED_CARDS if c <= count)
+        cards = [torch.device("cuda", i) for i in range(k)]
+        out["cards"] = sharded_state_steps(cfg, b, n, {f"1x{k}": grid_of((1, k), cards)},
+                                           share=True)
+        one = out["vq_opt_steps"].get(f"1x{k}")
+        if one is not None:  # the same grid on one card: the same losses
+            got = out["cards"][f"1x{k}"]["lm_loss"]
+            if any(abs(a - c) > TRAIN_LOSS_TOL * max(1.0, abs(c))
+                   for a, c in zip(got, one["lm_loss"])):
+                raise AssertionError(f"{k} cards: losses {got}, on one card {one['lm_loss']}")
+            out["cards"]["losses_bitwise_one_card"] = got == one["lm_loss"]
+        lap("c_cards")
+    else:
+        out["cards"] = {"skipped": "needs 2 cards"}
+    if count >= 4:
+        out["deepseek_v2"] = deepseek_cards_steps(
+            deepseek_cut("deepseek-v2-236b", 1, 1), 1024,
+            [torch.device("cuda", i) for i in range(4)])
+        lap("d_deepseek_v2")
+    else:
+        out["deepseek_v2"] = {"skipped": "needs 4 cards"}
+    out["laps_s"] = laps
+    return out
+
+
 def edit_roofline(srv, cfg, shapes: dict, busy_ms: float) -> dict:
     """Phase 8's dispatches priced by ``launch.roofline``: each (B, n_cap,
     C, R) of the profiled round at the module's H100 peaks and the
@@ -3884,6 +4190,9 @@ def main() -> int:
                         "gated_attention over (BH, nq, nk) and its backward over "
                         "(BH, n); a comma list of "
                         f"{SWEEPS} picks some (no other phase, no ok line)")
+    p.add_argument("--phase", choices=("sharded_train",),
+                   help="after the build, only phase 22 (with 4 cards visible its (c) "
+                        "and (d) across cards; no other phase, no ok line)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3925,6 +4234,12 @@ def main() -> int:
                       gated_attention_bwd=lambda g: sweep_gated_attention_bwd(gak, g))
         for name in args.sweep.split(","):
             sweeps[name](torch.Generator(device="cuda").manual_seed(0))
+        print(smi, flush=True)
+        return 0
+    if args.phase:
+        t0 = time.perf_counter()
+        emit("sharded_train", **sharded_phase(), seconds=time.perf_counter() - t0,
+             nvidia_smi=smi)
         print(smi, flush=True)
         return 0
 
@@ -4069,7 +4384,7 @@ def main() -> int:
 
     # ---- 11. tiered: the state store under device and host budgets
     t0 = time.perf_counter()
-    tier = tiered_phase(params, cfg, docs, stream[:3])
+    tier = tiered_phase(params, cfg, docs, stream[:2])
     emit("tiered", seconds=time.perf_counter() - t0, nvidia_smi=smi, **tier)
 
     # ---- 12. async: concurrent clients through the deadline batcher
@@ -4128,7 +4443,7 @@ def main() -> int:
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    ftr = family_train_phase()
+    ftr = family_train_phase(steps=2)
     emit("family_train", seconds=time.perf_counter() - t0, nvidia_smi=smi, **ftr)
 
     # ---- 21. grid: the model axis, expert-parallel MoE at deepseek-v2 width
@@ -4137,6 +4452,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     grd = grid_phase()
     emit("grid", seconds=time.perf_counter() - t0, nvidia_smi=smi, **grd)
+
+    # ---- 22. sharded_train: the train step run by the sharding plan
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shd = sharded_phase()
+    emit("sharded_train", seconds=time.perf_counter() - t0, nvidia_smi=smi, **shd)
 
     # ---- summary
     c72 = next(f for f in fused if f["C"] == 72 and f["mask"] == "random")

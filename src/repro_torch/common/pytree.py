@@ -81,3 +81,25 @@ def tree_unflatten(like, leaves):
     """``like``'s structure holding ``leaves`` (in leaf order)."""
     it = iter(leaves)
     return tree_map_with_path(lambda _p, _leaf: next(it), like)
+
+
+def tensor_leaves(tree) -> list:
+    """Every tensor of ``tree``: a leaf laid out on a grid
+    (``distributed.context.Blocks``) gives its distinct block tensors."""
+    out = []
+    for leaf in tree_leaves(tree):
+        out.extend(leaf.distinct() if hasattr(leaf, "distinct") else (leaf,))
+    return out
+
+
+def with_tensor_leaves(like, tensors):
+    """``like``'s structure (laid-out leaves included) holding ``tensors``
+    in ``tensor_leaves`` order."""
+    it = iter(tensors)
+
+    def one(_p, leaf):
+        if hasattr(leaf, "distinct"):
+            return leaf.with_tensors([next(it) for _ in leaf.distinct()])
+        return next(it)
+
+    return tree_map_with_path(one, like)

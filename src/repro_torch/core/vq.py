@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.vq_assign import vq_assign
+from repro_torch.models import draw_device
 
 
 @dataclass(frozen=True)
@@ -35,7 +36,7 @@ def init(gen: torch.Generator, d_model: int, cfg: VQConfig, repeat: tuple = ()) 
         raise ValueError(f"d_model={d_model} not divisible by vq heads={cfg.n_heads}")
     shape = repeat + (cfg.n_heads, cfg.codebook_size, d_model // cfg.n_heads)
     return {"codebook": torch.randn(shape, generator=gen, dtype=torch.float32,
-                                    device=gen.device).mul_(0.5)}
+                                    device=draw_device(gen)).mul_(0.5)}
 
 
 # ---------------------------------------------------------------- inference
@@ -78,8 +79,9 @@ def quantize(params: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
 
 def gumbel(generator: torch.Generator, shape) -> torch.Tensor:
     """Standard Gumbel noise ``-log(-log u)``, u uniform in [tiny, 1) (as
-    ``jax.random.gumbel``), drawn on the generator's device."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
+    ``jax.random.gumbel``), drawn on the generator's device (a ``meta``
+    stand-in for None)."""
+    u = torch.rand(shape, generator=generator, device=draw_device(generator))
     return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
 
 

@@ -5,7 +5,9 @@ when the launch is refused.
 Wrappers dispatch on the device of their inputs: CPU tensors run the plain
 PyTorch version (that is how the tests run) and CUDA tensors launch the
 hand-written kernel or raise. Nothing falls back from the card to the plain
-version.
+version. ``meta`` tensors (the dry run's stand-ins) launch nothing: the
+wrapper returns empty outputs of the kernel's shapes and hands the kernel's
+operations and bytes to ``meta_work``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,18 @@ def bind(lib_name: str, fn_name: str, argtypes: list):
         fn.restype = ctypes.c_int
         _fns[(lib_name, fn_name)] = fn
     return fn
+
+
+# the dry run's counter: called as META_COUNTER(name, flops, nbytes) for each
+# kernel call on meta tensors (``launch.dryrun`` sets it while it counts)
+META_COUNTER = None
+
+
+def meta_work(name: str, flops: float, nbytes: float) -> None:
+    """A kernel call on meta tensors: its operations and compulsory bytes
+    (the bound formulas of PERF.md section 6) to the dry run's counter."""
+    if META_COUNTER is not None:
+        META_COUNTER(name, flops, nbytes)
 
 
 def require_cuda(name: str, t: torch.Tensor) -> None:

@@ -11,8 +11,10 @@ over its repeats) and returns [b, n, H·dh], matching
 differentiable through a ``torch.autograd.Function`` that saves q, k and v
 (not the scores: the backward recomputes S). CPU tensors run the plain
 versions (``ref.py``: the forward and the written-out backward); CUDA
-tensors launch the kernels or raise. The backward kernels take dh = dv in
-``BWD_HEAD_DIMS`` and nq = nk. ``LAUNCHES`` counts kernel launches.
+tensors launch the kernels or raise; meta tensors return meta outputs and
+count the kernels' work (``_launch.meta_work``). The backward kernels take
+dh = dv in ``BWD_HEAD_DIMS`` and nq = nk. ``LAUNCHES`` counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels._launch import (
-    FLOAT, INT, PTR, bind, check, check_aligned, raise_on_error, require_cuda,
+    FLOAT, INT, PTR, bind, check, check_aligned, meta_work, raise_on_error, require_cuda,
     stream_of,
 )
 from repro_torch.kernels.gated_attention.ref import gated_attention_bwd_ref, gated_attention_ref
@@ -48,11 +50,24 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def _pairs(nq: int, nk: int) -> int:
+    """(query, key) pairs causal attention visits: row i sees min(i + 1, nk)."""
+    full = min(nq, nk)
+    return full * (full + 1) // 2 + max(nq - nk, 0) * nk
+
+
 def _forward_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The forward: the plain version on CPU tensors, one launch on CUDA
-    tensors."""
+    tensors, on meta tensors a meta output and the kernel's work (q k^T and
+    W v, 2 operations a multiply-add; q, k, v read and O written once)."""
     if q.device.type == "cpu":
         return gated_attention_ref(q, k, v)
+    if q.device.type == "meta":
+        BH, nq, dh = q.shape
+        nk, dv = k.shape[1], v.shape[-1]
+        meta_work("gated_attention", 2 * BH * _pairs(nq, nk) * (dh + dv),
+                  4 * BH * (nq * dh + nk * (dh + dv) + nq * dv))
+        return torch.empty((BH, nq, dv), dtype=torch.float32, device="meta")
     require_cuda("gated_attention", q)
     BH, nq, dh = q.shape
     nk, dv = k.shape[1], v.shape[-1]
@@ -90,6 +105,11 @@ def gated_attention_bwd_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and 256 have kernels of their own."""
     if q.device.type == "cpu":
         return gated_attention_bwd_ref(q, k, v, do)
+    if q.device.type == "meta":
+        BH, n, dh = q.shape
+        meta_work("gated_attention_bwd", BH * _pairs(n, n) * 5 * 2 * dh, 7 * BH * n * dh * 4)
+        return tuple(torch.empty((BH, n, dh), dtype=torch.float32, device="meta")
+                     for _ in range(3))
     require_cuda("gated_attention_bwd", q)
     BH, n, dh = q.shape
     if k.shape[1] != n:

@@ -2,7 +2,8 @@
 of ``repro/kernels/vq_assign/ops.py``.
 
 CPU tensors run the plain version (``ref.py``); CUDA tensors launch the
-kernel or raise. ``vq_assign`` quantizes any leading shape in one launch
+kernel or raise; meta tensors return meta outputs and count the kernel's
+work (``_launch.meta_work``). ``vq_assign`` quantizes any leading shape in one launch
 (B = 1); ``vq_assign_batched`` takes [B, N, d] documents in one launch over
 their B·N tokens, the codebook shared. ``LAUNCHES`` counts kernel launches.
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._launch import (
-    INT, PTR, bind, check, raise_on_error, require_cuda, stream_of,
+    INT, PTR, bind, check, meta_work, raise_on_error, require_cuda, stream_of,
 )
 from repro_torch.kernels.vq_assign.ref import vq_assign_ref
 
@@ -42,6 +43,18 @@ def schedule(tokens: int) -> str:
     if tokens <= _SMALL_MAX_TOKENS:
         return "small"
     return "large16" if tokens <= _LARGE16_MAX_TOKENS else "large32"
+
+
+def _meta(xh: torch.Tensor, codebook: torch.Tensor):
+    """The kernel's outputs as meta tensors, and its work: 2·Q·dv
+    operations a token and head; x and the codebook read, x_q and the
+    indices written once."""
+    B, N, hq, dv = xh.shape
+    Q = codebook.shape[1]
+    meta_work("vq_assign", 2 * B * N * hq * Q * dv,
+              4 * (2 * B * N * hq * dv + hq * Q * dv + B * N * hq))
+    return (torch.empty((B, N, hq), dtype=torch.int32, device="meta"),
+            torch.empty_like(xh))
 
 
 def _launch(xh: torch.Tensor, codebook: torch.Tensor):
@@ -84,7 +97,8 @@ def vq_assign(x: torch.Tensor, codebook: torch.Tensor):
     if x.device.type == "cpu":
         idx, xq = vq_assign_ref(x.reshape(*lead, hq, dv), codebook)
         return idx, xq.reshape(*lead, d)
-    idx, xq = _launch(x.reshape(1, -1, hq, dv).contiguous(), codebook)
+    run = _meta if x.device.type == "meta" else _launch
+    idx, xq = run(x.reshape(1, -1, hq, dv).contiguous(), codebook)
     return idx.reshape(*lead, hq), xq.reshape(*lead, d).to(x.dtype)
 
 
@@ -99,5 +113,6 @@ def vq_assign_batched(x: torch.Tensor, codebook: torch.Tensor):
     if x.device.type == "cpu":
         idx, xq = vq_assign_ref(x.reshape(B, N, hq, dv), codebook)
         return idx, xq.reshape(B, N, d)
-    idx, xq = _launch(x.reshape(B, N, hq, dv).contiguous(), codebook)
+    run = _meta if x.device.type == "meta" else _launch
+    idx, xq = run(x.reshape(B, N, hq, dv).contiguous(), codebook)
     return idx, xq.reshape(B, N, d).to(x.dtype)

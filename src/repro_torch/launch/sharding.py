@@ -19,16 +19,22 @@ Baseline policy:
 
 Each function returns the tree with every leaf replaced by a
 ``NamedSharding(grid, spec)``: a plan, whose ``blocks(shape)`` says which
-block of the leaf each grid entry holds. ``models.moe.place_experts``
-carries out the plan of the expert stacks; running the dense leaves split
-over ``model`` and batches over ``data`` is ROADMAP's next item.
+block of the leaf each grid entry holds. ``place`` carries a plan out: each
+leaf becomes a ``distributed.context.Blocks`` of copies on the entries'
+devices (``place_state`` for a ``TrainState``, ``place_batch`` for a
+batch; ``unplace`` assembles the whole leaves again). ``models.sharded``
+runs the forward and the train step over such blocks, and lays a tree of
+whole leaves out on the fly (``lay_out``, differentiable) when it is given
+one.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.common.pytree import path_entry_name, tree_map_with_path
-from repro_torch.distributed.context import NamedSharding, PartitionSpec as P
+from repro_torch.common.pytree import (
+    path_entry_name, tree_flatten_with_path, tree_map_with_path,
+)
+from repro_torch.distributed.context import Blocks, NamedSharding, PartitionSpec as P
 from repro_torch.launch.mesh import Grid
 
 
@@ -220,3 +226,84 @@ def cache_shardings(caches, mesh: Grid, *, batch: int):
         return NamedSharding(mesh, _divisible(spec, shape, mesh))
 
     return tree_map_with_path(one, caches)
+
+
+def lay_out(leaf, sharding: NamedSharding, *, copy: bool = True,
+            share=True) -> Blocks:
+    """``leaf`` (a whole tensor) as the ``Blocks`` its plan names: one
+    tensor a distinct (device, slice); with ``share=False`` one an entry
+    (each its own copy, as on a grid of distinct cards), with
+    ``share="row"`` one a distinct (device, slice) within each data row
+    (the dry run: no gradient adds across rows). With ``copy`` each is a
+    detached contiguous copy (``place``); without, a differentiable slice
+    moved to the entry's device, the leaf itself where the slice is whole
+    and the device its own (the forward's layout of whole leaves)."""
+    import torch
+
+    from repro_torch.distributed.context import grid_index_rows
+
+    row_of = ({i: r for r, row in enumerate(grid_index_rows(sharding.mesh)) for i in row}
+              if share == "row" else {})
+    held: dict = {}
+    tensors = {}
+    shape = tuple(leaf.shape)
+    for idx, sl in sharding.blocks(shape).items():
+        dev = torch.device(sharding.mesh.devices[idx])
+        key = (dev, tuple((s.start, s.stop) for s in sl),
+               row_of[idx] if share == "row" else None if share else idx)
+        t = held.get(key)
+        if t is None:
+            whole = all(s.start == 0 and s.stop == d for s, d in zip(sl, shape))
+            if copy:
+                t = leaf.detach()[sl].to(dev, copy=True).contiguous()
+            else:
+                t = (leaf if whole else leaf[sl]).to(dev)
+            held[key] = t
+        tensors[idx] = t
+    return Blocks(sharding, shape, tensors)
+
+
+def place(tree, mesh: Grid, *, copy: bool = True, share=True):
+    """``tree`` (parameters, or AdamW moments of the same paths) laid out by
+    ``param_shardings`` (``lay_out``): every leaf of rank >= 1 a
+    ``Blocks``; a leaf that already is one stays."""
+    plans = iter(s for _, s in tree_flatten_with_path(param_shardings(tree, mesh)))
+
+    def one(_path, leaf):
+        plan = next(plans)
+        if isinstance(leaf, Blocks) or leaf.dim() == 0:
+            return leaf
+        return lay_out(leaf, plan, copy=copy, share=share)
+
+    return tree_map_with_path(one, tree)
+
+
+def place_state(state, mesh: Grid, *, share=True):
+    """A ``training.step.TrainState`` by its plan: the parameters and both
+    AdamW moments laid out alike (``param_shardings`` of the state gives
+    them the same specs), the step on the grid's first device, the host
+    rng pair as it is."""
+    import dataclasses
+
+    import torch
+
+    first = torch.device(mesh.devices.flat[0])
+    lay = lambda t: place(t, mesh, share=share)  # noqa: E731
+    opt = dataclasses.replace(state.opt, step=state.opt.step.to(first),
+                              mu=lay(state.opt.mu), nu=lay(state.opt.nu))
+    return dataclasses.replace(state, params=lay(state.params), opt=opt)
+
+
+def place_batch(batch: dict, mesh: Grid) -> dict:
+    """A training / prefill batch laid out by ``batch_shardings``: rows over
+    the data axes, each row block once a distinct device of its row."""
+    import torch
+
+    plans = batch_shardings(batch, mesh)
+    return {k: lay_out(torch.as_tensor(v), plans[k]) for k, v in batch.items()}
+
+
+def unplace(tree, device=None):
+    """``tree`` with every ``Blocks`` assembled into its whole leaf."""
+    return tree_map_with_path(
+        lambda _p, leaf: leaf.assemble(device) if isinstance(leaf, Blocks) else leaf, tree)

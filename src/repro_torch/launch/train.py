@@ -17,9 +17,12 @@ As in the reference, every step runs under a grid (``use_mesh``):
 device, so a MoE layer goes through the expert-parallel
 ``moe_apply_ep`` at one model slice, with the reference's fixed capacity.
 ``--mesh single`` / ``pod`` build the reference's (16, 16) and
-(2, 16, 16) grids of CUDA devices and raise ``make_mesh``'s
-``ValueError`` on a machine with fewer cards; running a step split
-across cards is ROADMAP Queue A's next item.
+(2, 16, 16) grids of CUDA devices (``make_mesh`` raises a ``ValueError``
+on a machine with fewer cards), place the train state there by its plan
+(``launch.sharding.place_state``) and run each step across the grid
+(``models.sharded``); archs with rwkv6 or hymba mixers raise
+``NotImplementedError`` there (ROADMAP item 12b). A checkpoint is saved
+from the assembled leaves.
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ from repro_torch.configs import get_config
 from repro_torch.data import SyntheticCorpus, lm_batches
 from repro_torch.distributed.context import use_mesh
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.launch.sharding import place_state, unplace
+from repro_torch.models.sharded import check_supported
 from repro_torch.training import make_schedule, make_train_step, train_state_init
 
 
@@ -43,6 +48,15 @@ def make_grid(mesh: str, device):
     if mesh == "host":
         return make_host_mesh(device)
     return make_production_mesh(multi_pod=mesh == "pod")
+
+
+def place_for(state, cfg, grid):
+    """``state`` placed on ``grid`` by its plan when the grid has more than
+    one entry (refusing what the grid path does not run); else as it is."""
+    if grid.devices.size == 1:
+        return state
+    check_supported(cfg)
+    return place_state(state, grid)
 
 
 def grid_step(step_fn, grid):
@@ -84,6 +98,7 @@ def main(argv=None):
                           total_steps=args.steps, final_lr=args.lr / 10)
     corpus = SyntheticCorpus(vocab=cfg.vocab, seed=0)
     state = train_state_init(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    state = place_for(state, cfg, grid)
     step_fn = grid_step(make_train_step(cfg, sched, accum_steps=args.accum), grid)
     t0 = time.time()
     for i, batch in enumerate(
@@ -99,7 +114,7 @@ def main(argv=None):
                 flush=True,
             )
     if args.ckpt:
-        save_train_state(args.ckpt, state, step=args.steps)
+        save_train_state(args.ckpt, unplace(state), step=args.steps)
         print(f"saved checkpoint to {args.ckpt}")
 
 

@@ -107,6 +107,20 @@ def mla_apply(params: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
     c_kv, k_rope = _latent(params, cfg, x, positions)
     k_nope = (c_kv @ params["w_uk"]).reshape(b, n, H, m.nope_dim)
     v = (c_kv @ params["w_uv"]).reshape(b, n, H, m.v_dim)
+    o = mla_core(cfg, layer, q_nope, q_rope, k_nope, k_rope, v)
+    if train and "vq" in params:
+        o, _, aux = vq_mod.forward_train(params["vq"], o, cfg.vqt, noise=vq_noise)
+        return _mix(params, o), aux
+    return _project_out(params, o), torch.zeros((), device=x.device)
+
+
+def mla_core(cfg: ArchConfig, layer: LayerCfg, q_nope: torch.Tensor, q_rope: torch.Tensor,
+             k_nope: torch.Tensor, k_rope: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Naive MLA attention of H heads: q_nope / k_nope [b, n, H, nope], the
+    rotated q_rope [b, n, H, rope], the shared k_rope [b, n, 1, rope], v
+    [b, n, H, v_dim] -> o [b, n, H·v_dim]."""
+    m = cfg.mla
+    b, n, H, _ = q_nope.shape
     if n > attention.STREAM_THRESHOLD:
         # fold the shared RoPE key into a combined head dim
         q_cat = torch.cat([q_nope, q_rope], dim=-1)  # [b, n, H, nope + rope]
@@ -122,15 +136,12 @@ def mla_apply(params: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,
                                k_rope.to(torch.float32))
         scores *= (m.nope_dim + m.rope_dim) ** -0.5
         del q_nope, k_nope
-        mask = make_mask(n, n, causal=True, window=layer.window, device=x.device)
+        mask = make_mask(n, n, causal=True, window=layer.window, device=v.device)
         w = _weights(scores, mask, cfg.attn_softmax)
         del scores
         o = torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v).reshape(b, n, H * m.v_dim)
         del w
-    if train and "vq" in params:
-        o, _, aux = vq_mod.forward_train(params["vq"], o, cfg.vqt, noise=vq_noise)
-        return _mix(params, o), aux
-    return _project_out(params, o), torch.zeros((), device=x.device)
+    return o
 
 
 def mla_decode(params: dict, cfg: ArchConfig, layer: LayerCfg, x: torch.Tensor,

@@ -25,8 +25,10 @@ loops over the grid's data rows and model indices, each slice on its grid
 entry's device: a fixed-capacity dispatch (cumsum slotting, assignments
 past ``capacity_factor`` dropped), the ``all_to_all`` as copies of
 ``[E_loc, cap, d]`` blocks to the experts' owners, one grouped product a
-owner, the copies back, the gates. ``moe_apply`` is ``moe_apply_ep``, as
-in the reference, so it is the dense path whenever no grid is active.
+owner, the copies back, the gates (``moe_ep_row`` a data row, which
+``models.sharded`` calls with each row's tokens where they sit).
+``moe_apply`` is ``moe_apply_ep``, as in the reference, so it is the
+dense path whenever no grid is active.
 ``place_experts`` lays the expert stacks out once by the grid's plan
 (``launch.sharding``), each slice resident on its device.
 
@@ -49,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.context import get_ctx
+from repro_torch.distributed.context import get_ctx, grid_index_rows
 from repro_torch.models import normal
 from repro_torch.models.ffn import ffn_apply
 
@@ -121,19 +123,6 @@ _EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 def _ep_capacity(t2: int, e, n_experts: int) -> int:
     cap = int(math.ceil(t2 * e.top_k / n_experts * e.capacity_factor))
     return max(8, cap)
-
-
-def grid_rows(grid) -> np.ndarray:
-    """[D, M] devices of ``grid`` (axes among "pod", "data", "model"): the
-    data rows (the "pod" and "data" axes, row-major, as the reference
-    splits the batch) by the model axis."""
-    names = grid.axis_names
-    data = [names.index(a) for a in ("pod", "data") if a in names]
-    model = [names.index("model")] if "model" in names else []
-    if len(data) + len(model) != len(names):
-        raise ValueError(f"grid axes {names}: expected only pod, data and model")
-    D = int(np.prod([grid.devices.shape[i] for i in data]))
-    return np.transpose(grid.devices, data + model).reshape(D, -1)
 
 
 @dataclass
@@ -235,68 +224,107 @@ def moe_apply_ep(params: dict, cfg: ArchConfig,
     ctx = get_ctx()
     if ctx is None:
         return moe_apply_dense(params, cfg, x)
-    e = cfg.moe
-    b, n, d = x.shape
-    E, k = e.n_experts, e.top_k
-    rows = grid_rows(ctx.mesh)
-    D, M = rows.shape
-    if E % M:
-        raise ValueError(f"experts {E} must divide model axis {M}")
+    b = x.shape[0]
+    idx_rows = grid_index_rows(ctx.mesh)
+    D = len(idx_rows)
     if b % D:
         raise ValueError(f"batch {b} does not split over the {D} data rows of {ctx.mesh}")
     placed = params.get("placed")
     if placed is not None and not (placed.grid.axis_names == ctx.mesh.axis_names
                                    and np.array_equal(placed.grid.devices, ctx.mesh.devices)):
         raise ValueError(f"experts are placed on {placed.grid}, not on the active {ctx.mesh}")
-    E_loc, b_loc = E // M, b // D
+    b_loc = b // D
+    home = x.device
+    ys, auxes = [], []
+    for r, idxs in enumerate(idx_rows):
+        xb = x[r * b_loc:(r + 1) * b_loc]
+        y, aux = moe_ep_row(params, cfg, xb, r, ctx.mesh, idxs, home=home)
+        ys.append(y)
+        auxes.extend(aux)
+    EP_STATS["calls"] += 1
+    return torch.cat(ys), torch.stack(auxes).mean()
+
+
+def moe_ep_row(params: dict, cfg: ArchConfig, xb: torch.Tensor, r: int, grid, idxs: list,
+               home=None, shared=None) -> tuple[torch.Tensor, list]:
+    """Data row ``r`` of ``moe_apply_ep``: its tokens ``xb`` [b_loc, n, d]
+    over the row's model slices (grid indices ``idxs``). The weights are
+    whole leaves, a ``place_experts`` placement, or ``Blocks`` (each
+    slice's block on its entry). ``shared`` runs the shared experts (default
+    ``ffn_apply`` on xb). Returns (y [b_loc, n, d] on ``home``, default
+    xb's device; the slices' aux on ``home``)."""
+    from repro_torch.distributed.context import Blocks, at_entry, move
+
+    e = cfg.moe
+    b_loc, n, d = xb.shape
+    E, k = e.n_experts, e.top_k
+    M = len(idxs)
+    if E % M:
+        raise ValueError(f"experts {E} must divide model axis {M}")
+    E_loc = E // M
     T_loc = b_loc * n
     T2 = -(-T_loc // M)  # tokens each model slice is responsible for
     cap = _ep_capacity(T2, e, E)
-    block = E_loc * cap * d * x.element_size()
-    home = x.device
-    ys, auxes = [], []
-    for r in range(D):
-        devs = [torch.device(dv) for dv in rows[r]]
-        xb = x[r * b_loc:(r + 1) * b_loc].reshape(T_loc, d)
-        xt = torch.cat([xb, xb.new_zeros(T2 * M - T_loc, d)]) if T2 * M > T_loc else xb
-        sends, slots = [], []
-        for m, dev in enumerate(devs):
-            x_mine = xt[m * T2:(m + 1) * T2].to(dev)
-            gates, eidx, aux = _router(_router_on(params, dev), e, x_mine)
+    block = E_loc * cap * d * xb.element_size()
+    home = xb.device if home is None else home
+    devs = [torch.device(grid.devices[i]) for i in idxs]
+    src = next((i for i, dv in zip(idxs, devs) if dv == xb.device), idxs[0])
+    blocks = isinstance(params["router"], Blocks)
+
+    def weights(j):
+        if blocks:
+            return tuple(params[name].block(idxs[j]) for name in _EXPERT_LEAVES)
+        return _slice_weights(params, j, devs[j], E_loc)
+
+    def router(m):
+        if blocks:
+            return {"router": params["router"].block(idxs[m])}
+        return _router_on(params, devs[m])
+
+    x2 = xb.reshape(T_loc, d)
+    xt = torch.cat([x2, x2.new_zeros(T2 * M - T_loc, d)]) if T2 * M > T_loc else x2
+    sends, slots, auxes = [], [], []
+    for m, dev in enumerate(devs):
+        x_mine = move(xt[m * T2:(m + 1) * T2], src, idxs[m], grid, "model_bcast")
+        with at_entry(idxs[m]):
+            gates, eidx, aux = _router(router(m), e, x_mine)
             flat_e = eidx.reshape(-1)  # [T2·k], token-major
             onehot = F.one_hot(flat_e, E)
             pos = ((onehot.cumsum(0) - onehot) * onehot).sum(1)  # place in the bucket
             keep = pos < cap
             dst = flat_e * (cap + 1) + torch.where(keep, pos, torch.full_like(pos, cap))
-            src = x_mine[:, None].expand(T2, k, d).reshape(T2 * k, d)
-            buf = x_mine.new_zeros(E * (cap + 1), d).index_copy(0, dst, src)
+            rep = x_mine[:, None].expand(T2, k, d).reshape(T2 * k, d)
+            buf = x_mine.new_zeros(E * (cap + 1), d).index_copy(0, dst, rep)
             sends.append(buf.view(E, cap + 1, d)[:, :cap].reshape(M, E_loc, cap, d))
-            slots.append((dst, gates))
-            auxes.append(aux.to(home))
-            EP_STATS["kept"][(r, m)] = keep
-            EP_STATS["device_copy_bytes"] += (T2 * d * x.element_size()) * 2 * (dev != home)
-        outs = []
-        for j, dev in enumerate(devs):  # owner j: its experts over every slice's block
-            grouped = torch.stack([sends[m][j].to(dev) for m in range(M)], 1)
-            w = _slice_weights(params, j, dev, E_loc)
-            outs.append(_grouped_ffn(*w, grouped.reshape(E_loc, M * cap, d))
+        slots.append((dst, gates))
+        auxes.append(aux.to(home))
+        EP_STATS["kept"][(r, m)] = keep
+        EP_STATS["device_copy_bytes"] += (T2 * d * xb.element_size()) * 2 * (dev != home)
+    outs = []
+    for j, dev in enumerate(devs):  # owner j: its experts over every slice's block
+        grouped = torch.stack([move(sends[m][j], idxs[m], idxs[j], grid, "expert_all_to_all")
+                               for m in range(M)], 1)
+        with at_entry(idxs[j]):
+            outs.append(_grouped_ffn(*weights(j), grouped.reshape(E_loc, M * cap, d))
                         .view(E_loc, M, cap, d))
-        parts = []
-        for m, dev in enumerate(devs):
-            ret = torch.cat([outs[j][:, m].to(dev) for j in range(M)])  # [E, cap, d]
+    parts = []
+    for m, dev in enumerate(devs):
+        ret = torch.cat([move(outs[j][:, m], idxs[j], idxs[m], grid, "expert_all_to_all")
+                         for j in range(M)])  # [E, cap, d]
+        dst, gates = slots[m]
+        with at_entry(idxs[m]):
             ret = torch.cat([ret, ret.new_zeros(E, 1, d)], 1).view(E * (cap + 1), d)
-            dst, gates = slots[m]
             vals = ret.index_select(0, dst) * gates.reshape(-1, 1).to(ret.dtype)
-            parts.append(vals.view(T2, k, d).sum(1).to(home))
-        EP_STATS["exchange_bytes"] += 2 * M * (M - 1) * block
-        EP_STATS["device_copy_bytes"] += 2 * block * sum(
-            devs[m] != devs[j] for m in range(M) for j in range(M))
-        y = torch.cat(parts)[:T_loc]
-        if "shared" in params:
-            y = y + ffn_apply("swiglu", params["shared"], xb)
-        ys.append(y.view(b_loc, n, d))
-    EP_STATS["calls"] += 1
-    return torch.cat(ys), torch.stack(auxes).mean()
+        parts.append(move(vals.view(T2, k, d).sum(1), idxs[m], src, grid, "model_gather")
+                     .to(home))
+    EP_STATS["exchange_bytes"] += 2 * M * (M - 1) * block
+    EP_STATS["device_copy_bytes"] += 2 * block * sum(
+        devs[m] != devs[j] for m in range(M) for j in range(M))
+    y = torch.cat(parts)[:T_loc].view(b_loc, n, d)
+    if "shared" in params:
+        y = y + (shared(xb) if shared is not None
+                 else ffn_apply("swiglu", params["shared"], xb)).to(home)
+    return y, auxes
 
 
 def moe_apply(params: dict, cfg: ArchConfig,

@@ -27,13 +27,14 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, LayerCfg
-from repro_torch.models import normal
+from repro_torch.models import draw_device, normal
 from repro_torch.models.linear_scan import CHUNK, lin_attn_chunked, lin_attn_decode_step
 from repro_torch.models.norms import groupnorm
 
 
 def _uniform(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
-    return torch.rand(shape, generator=gen, dtype=torch.float32, device=gen.device).mul_(scale)
+    return torch.rand(shape, generator=gen, dtype=torch.float32,
+                      device=draw_device(gen)).mul_(scale)
 
 
 def rwkv_init(gen: torch.Generator, cfg: ArchConfig, layer: LayerCfg, r: tuple = ()) -> dict:

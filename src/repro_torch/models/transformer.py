@@ -71,7 +71,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, LayerCfg
 from repro_torch.core import vq as vq_mod
-from repro_torch.distributed.context import get_ctx, with_ctx
+from repro_torch.distributed.context import active_grid, get_ctx, with_ctx
 from repro_torch.models import normal
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.attention import (
@@ -318,7 +318,14 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     replay an explicit generator. ``vq_noise``, a list indexed by the
     layer's global index, overrides the draws. A layer body runs under the
     sharding context of its forward (``distributed.context.with_ctx``), in
-    its recompute too."""
+    its recompute too. Under a grid of more than one entry the forward runs
+    the sharding plan (``models.sharded``); the logits come back whole.
+    Meta tensors (the dry run) draw meta noise when ``rng`` is None."""
+    if active_grid() is not None:
+        from repro_torch.models import sharded
+
+        return sharded.forward(params, cfg, tokens, positions, patch_embeds=patch_embeds,
+                               train=train, rng=rng, vq_noise=vq_noise, remat=remat)
     b, n = tokens.shape[:2]
     if positions is None:
         positions = torch.arange(n, dtype=torch.int32, device=tokens.device).expand(b, n)
@@ -332,7 +339,7 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             [torch.arange(npat, dtype=positions.dtype, device=x.device).expand(b, npat),
              positions + npat], dim=1)
     aux = torch.zeros((), device=x.device)
-    if train and rng is None:
+    if train and rng is None and x.device.type != "meta":
         rng = torch.Generator(device=x.device).manual_seed(0)
     li = 0
     for (pattern, repeat), sp in zip(cfg.stages, params["stages"]):

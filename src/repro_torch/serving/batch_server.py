@@ -50,7 +50,9 @@ the state rests. Rehydrated and imported states land on the primary device
 ``mesh[0]``, where the suggester's weights live. A one-entry mesh (or
 ``mesh=None``) is the single-device scheduler bit for bit.
 
-Not ported yet (a later slice): the persistent compilation cache.
+``compilation_cache_dir`` (or ``$REPRO_COMPILE_CACHE_DIR``) points the
+kernels' build cache at a directory that outlives the process
+(``common.compile_cache``); off by default.
 
 Host mirrors are copied to the device with ``torch.tensor`` (never
 ``torch.from_numpy``, which would share storage with a mirror the next take
@@ -71,6 +73,7 @@ from repro_torch.checkpoint.store import (
     restore_serving_document, save_serving_document,
 )
 from repro_torch.common.bucketing import capacity_class, next_pow2
+from repro_torch.common.compile_cache import enable_persistent_compilation_cache
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.edits import Edit
 from repro_torch.core.positional import PositionAllocator
@@ -209,7 +212,8 @@ class BatchServer:
                  pos_pool: Optional[int] = None,
                  device_budget_bytes: Optional[int] = None,
                  host_budget_bytes: Optional[int] = None,
-                 spill_dir: Optional[str] = None, device=None, mesh=None):
+                 spill_dir: Optional[str] = None, device=None, mesh=None,
+                 compilation_cache_dir: Optional[str] = None):
         """``use_fused_kernel`` (default on, as in the reference) routes each
         layer's patch + requantize through one ``fused_step`` kernel launch;
         ``use_patch_kernel`` (with the fused kernel off) routes only the
@@ -223,11 +227,14 @@ class BatchServer:
         temporary directory on first spill). ``device`` defaults to
         ``"cuda"``; with ``mesh=`` (a sequence of devices) it defaults to,
         and must be, ``mesh[0]``, and ``max_batch`` must be a multiple of
-        ``len(mesh)``."""
+        ``len(mesh)``. ``compilation_cache_dir`` (None still honours
+        ``$REPRO_COMPILE_CACHE_DIR``) keeps the kernel builds there."""
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if capacity_class_step < 2:
             raise ValueError("capacity_class_step must be >= 2")
+        self.compilation_cache_dir = enable_persistent_compilation_cache(
+            compilation_cache_dir)
         self.cfg = cfg
         self.C = next_pow2(edit_capacity)
         self.R = next_pow2(row_capacity)

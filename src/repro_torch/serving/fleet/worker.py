@@ -49,12 +49,17 @@ class _Worker:
     def __init__(self, spec: dict):
         import torch
 
+        from repro_torch.common.compile_cache import enable_persistent_compilation_cache
         from repro_torch.configs import get_config
         from repro_torch.models.transformer import init_params
         from repro_torch.serving.async_server import AsyncBatchServer
         from repro_torch.serving.batch_server import BatchServer
         from repro_torch.serving.fleet import cold_tier
 
+        # workers inherit REPRO_COMPILE_CACHE_DIR from the router's
+        # environment: every replica loads the same kernel builds (a no-op
+        # when the variable is unset)
+        enable_persistent_compilation_cache()
         self._cold_tier = cold_tier
         self.replica = spec["replica"]
         self.cold_dir = spec["cold_dir"]

@@ -5,9 +5,12 @@ bias correction with ``b ** step``, ``eps`` outside the square root, and
 weight decay on every leaf (the sampled-position pool included).
 ``torch.optim.AdamW`` orders these operations differently, so it is not
 used; the updates run as ``torch._foreach_*`` calls over the flattened
-tree, in passes of bounded size. Trees are nested dicts / lists / tuples
-of f32 tensors; the update returns new tensors and leaves its inputs as
-they were.
+tree, in passes of bounded size, each pass on one device. Trees are
+nested dicts / lists / tuples of f32 tensors, or of leaves laid out on a
+grid (``distributed.context.Blocks``): then every block tensor is updated,
+the norm counts each distinct slice once, and the copies of a replicated
+leaf, given equal gradients, stay bitwise equal. The update returns new
+tensors and leaves its inputs as they were.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.common.pytree import tree_leaves, tree_unflatten
+from repro_torch.common.pytree import tensor_leaves, tree_leaves, with_tensor_leaves
 
 
 @dataclasses.dataclass
@@ -37,20 +40,24 @@ class AdamWConfig:
 
 
 def adamw_init(params) -> AdamWState:
-    zeros = lambda t: tree_unflatten(  # noqa: E731
-        t, [torch.zeros_like(a, dtype=torch.float32) for a in tree_leaves(t)])
-    dev = tree_leaves(params)[0].device
+    zeros = lambda t: with_tensor_leaves(  # noqa: E731
+        t, [torch.zeros_like(a, dtype=torch.float32) for a in tensor_leaves(t)])
+    dev = tensor_leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=zeros(params), nu=zeros(params))
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares, in f32, added leaf
-    by leaf in tree order as the reference's Python ``sum``."""
+    by leaf in tree order as the reference's Python ``sum``; a placed leaf
+    adds one holder of each distinct slice, on the first leaf's device."""
     total = None
-    for a in tree_leaves(tree):
-        sq = torch.sum(torch.square(a.to(torch.float32)))
-        total = sq if total is None else total + sq
+    for leaf in tree_leaves(tree):
+        parts = ([held[0][1] for held in leaf.replicas()] if hasattr(leaf, "replicas")
+                 else [leaf])
+        for a in parts:
+            sq = torch.sum(torch.square(a.to(torch.float32)))
+            total = sq if total is None else total + sq.to(total.device)
     return torch.sqrt(total)
 
 
@@ -83,10 +90,10 @@ def adamw_update(params, grads, state: AdamWState, lr,
     """Returns (new_params, new_state, {"grad_norm"}). The element-wise
     update runs in passes of ``PASS_ELEMENTS`` (the same operations on
     each element as one pass over the whole tree)."""
-    p = tree_leaves(params)
-    g = tree_leaves(grads)
-    m, v = tree_leaves(state.mu), tree_leaves(state.nu)
-    gnorm = global_norm(g)
+    p = tensor_leaves(params)
+    g = tensor_leaves(grads)
+    m, v = tensor_leaves(state.mu), tensor_leaves(state.nu)
+    gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     stepf = step.to(torch.float32)
@@ -97,25 +104,33 @@ def adamw_update(params, grads, state: AdamWState, lr,
     mu = [torch.empty(x.shape, dtype=torch.float32, device=x.device) for x in m]
     nu = [torch.empty(x.shape, dtype=torch.float32, device=x.device) for x in v]
     flat = [[t.reshape(-1) for t in ts] for ts in (p, g, m, v, new_p, mu, nu)]
-    for group in _passes([x.numel() for x in p], PASS_ELEMENTS):
-        fp, fg, fm, fv, out_p, out_m, out_v = (
-            [ts[i][a:b] for i, a, b in group] for ts in flat)
-        gs = torch._foreach_mul([x.to(torch.float32) for x in fg], scale)
-        mi = torch._foreach_add(torch._foreach_mul(fm, cfg.b1), torch._foreach_mul(gs, 1 - cfg.b1))
-        ni = torch._foreach_add(torch._foreach_mul(fv, cfg.b2),
-                                torch._foreach_mul(torch._foreach_mul(gs, 1 - cfg.b2), gs))
-        mhat = torch._foreach_div(mi, b1c)
-        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(ni, b2c)), cfg.eps)
-        pf = [x.to(torch.float32) for x in fp]
-        delta = torch._foreach_add(torch._foreach_div(mhat, denom),
-                                   torch._foreach_mul(pf, cfg.weight_decay))
-        pi = torch._foreach_sub(pf, torch._foreach_mul(delta, lr))
-        for outs, vals in ((out_m, mi), (out_v, ni), (out_p, pi)):
-            for o, val in zip(outs, vals):
-                o.copy_(val)
-    return (tree_unflatten(params, new_p),
-            AdamWState(step=step, mu=tree_unflatten(state.mu, mu),
-                       nu=tree_unflatten(state.nu, nu)),
+    by_device: dict = {}
+    for i, x in enumerate(p):
+        by_device.setdefault(x.device, []).append(i)
+    for dev, members in by_device.items():
+        # the scalars copied to each device: exact, so every device's
+        # elements take the same operations on the same values
+        sc, b1, b2, lr_d = (t.to(dev) for t in (scale, b1c, b2c, lr))
+        for group in _passes([p[i].numel() for i in members], PASS_ELEMENTS):
+            fp, fg, fm, fv, out_p, out_m, out_v = (
+                [ts[members[i]][a:b] for i, a, b in group] for ts in flat)
+            gs = torch._foreach_mul([x.to(torch.float32) for x in fg], sc)
+            mi = torch._foreach_add(torch._foreach_mul(fm, cfg.b1),
+                                    torch._foreach_mul(gs, 1 - cfg.b1))
+            ni = torch._foreach_add(torch._foreach_mul(fv, cfg.b2),
+                                    torch._foreach_mul(torch._foreach_mul(gs, 1 - cfg.b2), gs))
+            mhat = torch._foreach_div(mi, b1)
+            denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(ni, b2)), cfg.eps)
+            pf = [x.to(torch.float32) for x in fp]
+            delta = torch._foreach_add(torch._foreach_div(mhat, denom),
+                                       torch._foreach_mul(pf, cfg.weight_decay))
+            pi = torch._foreach_sub(pf, torch._foreach_mul(delta, lr_d))
+            for outs, vals in ((out_m, mi), (out_v, ni), (out_p, pi)):
+                for o, val in zip(outs, vals):
+                    o.copy_(val)
+    return (with_tensor_leaves(params, new_p),
+            AdamWState(step=step, mu=with_tensor_leaves(state.mu, mu),
+                       nu=with_tensor_leaves(state.nu, nu)),
             {"grad_norm": gnorm})
 
 

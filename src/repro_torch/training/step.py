@@ -13,6 +13,16 @@ the parameters' device from the pair and advances the counter, so the
 state holds plain integers and a train-state file of either package reads
 in the other. The Gumbel noise streams of the two packages differ by
 design; a step's ``vq_noise`` takes given noise instead.
+
+Under a grid of more than one entry (``distributed.context.use_mesh``) the
+loss runs the sharding plan (``models.sharded.lm_loss``): each data row its
+batch rows, the noise drawn for the global batch and sliced to the rows,
+the loss the global mean. A state placed by ``launch.sharding.place_state``
+holds ``Blocks``: each block tensor gets its gradient, the replicas of a
+slice are summed (``context.reduce_replicas``) and AdamW updates every
+block, so the copies of a replicated leaf stay bitwise equal. A state of
+whole leaves runs the same plan, laid out in the forward, and its
+gradients come back whole.
 """
 from __future__ import annotations
 
@@ -21,8 +31,9 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.common.pytree import tree_leaves, tree_unflatten
+from repro_torch.common.pytree import tensor_leaves, with_tensor_leaves
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.context import Blocks, active_grid, reduce_replicas
 from repro_torch.models import transformer as T
 from repro_torch.training.losses import distill_loss, next_token_loss
 from repro_torch.training.optimizer import AdamWConfig, AdamWState, adamw_init, adamw_update
@@ -45,9 +56,11 @@ def train_state_init(cfg: ArchConfig, *, generator: torch.Generator,
                       rng=torch.tensor([seed, 0], dtype=torch.int64))
 
 
-def step_generator(rng: torch.Tensor, device) -> torch.Generator:
+def step_generator(rng: torch.Tensor, device) -> Optional[torch.Generator]:
     """The step's generator on ``device``, seeded from the (seed, counter)
-    pair."""
+    pair; None on ``meta`` (the dry run draws stand-ins)."""
+    if torch.device(device).type == "meta":
+        return None
     seed, counter = (int(x) & 0xFFFFFFFF for x in rng.tolist())
     return torch.Generator(device=device).manual_seed((seed << 32) | counter)
 
@@ -58,23 +71,26 @@ def _next_rng(rng: torch.Tensor) -> torch.Tensor:
 
 
 def _device(params: dict) -> torch.device:
-    return tree_leaves(params)[0].device
+    return tensor_leaves(params)[0].device
 
 
 def _on(batch: dict, device) -> dict:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    """The batch on ``device``; leaves placed on a grid stay where they are."""
+    return {k: v if isinstance(v, Blocks) else torch.as_tensor(v, device=device)
+            for k, v in batch.items()}
 
 
 def value_and_grad(loss_fn: Callable, params, *args, **kwargs):
     """``loss_fn(params, *args, **kwargs) -> (loss, metrics)`` and the
     gradient of the loss in every leaf of ``params`` (zeros where it does
-    not reach). Returns (loss, metrics, grads), detached."""
-    live = [p.detach().requires_grad_() for p in tree_leaves(params)]
-    loss, metrics = loss_fn(tree_unflatten(params, live), *args, **kwargs)
+    not reach; each block tensor's own gradient for a placed tree). Returns
+    (loss, metrics, grads), detached."""
+    live = [p.detach().requires_grad_() for p in tensor_leaves(params)]
+    loss, metrics = loss_fn(with_tensor_leaves(params, live), *args, **kwargs)
     grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(live, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            tree_unflatten(params, grads))
+            with_tensor_leaves(params, grads))
 
 
 def lm_loss(params, cfg: ArchConfig, batch: dict, rng: Optional[torch.Generator], *,
@@ -83,7 +99,12 @@ def lm_loss(params, cfg: ArchConfig, batch: dict, rng: Optional[torch.Generator]
     next-token loss on the text positions plus the auxiliary losses (VQ's
     and the MoE router's) and, with an MTP head, 0.3 × its next-token loss
     of token t + 2 from position t. Returns (loss, {"lm_loss",
-    "aux_loss"})."""
+    "aux_loss"}). Under a grid, ``models.sharded.lm_loss``."""
+    if active_grid() is not None:
+        from repro_torch.models import sharded
+
+        return sharded.lm_loss(params, cfg, batch, rng, aux_weight=aux_weight,
+                               vq_noise=vq_noise)
     logits, aux = T.forward(params, cfg, batch["tokens"], batch.get("positions"),
                             patch_embeds=batch.get("patch_embeds"), train=True, rng=rng,
                             vq_noise=vq_noise)
@@ -103,7 +124,8 @@ def make_train_step(cfg: ArchConfig, schedule: Callable, opt_cfg: AdamWConfig = 
     ``reshape(accum_steps, b // accum_steps, ...)`` and the gradients are
     averaged (live activation memory of one microbatch). Every microbatch
     draws from the same seed, as the reference reuses one rng under
-    ``lax.scan``; the metrics are the last microbatch's."""
+    ``lax.scan``; the metrics are the last microbatch's. A placed state's
+    gradients are reduced over the replicas before the update."""
 
     def step(state: TrainState, batch: dict, *, vq_noise=None):
         dev = _device(state.params)
@@ -119,9 +141,12 @@ def make_train_step(cfg: ArchConfig, schedule: Callable, opt_cfg: AdamWConfig = 
             total = None
             for i in range(accum_steps):
                 _, metrics, g = grads_of({k: v[i] for k, v in micro.items()})
-                g = tree_leaves(g)
+                g = tensor_leaves(g)
                 total = g if total is None else torch._foreach_add(total, g)
-            grads = tree_unflatten(state.params, torch._foreach_div(total, float(accum_steps)))
+            grads = with_tensor_leaves(state.params,
+                                       torch._foreach_div(total, float(accum_steps)))
+        if active_grid() is not None:
+            grads = reduce_replicas(grads)
         lr = schedule(state.opt.step)
         params, opt, om = adamw_update(state.params, grads, state.opt, lr, opt_cfg)
         return (TrainState(params=params, opt=opt, rng=_next_rng(state.rng)),

@@ -703,3 +703,48 @@ def test_family_train_length_is_the_train_4k_shape():
     from repro.launch.specs import SHAPES
 
     assert cs.train_4k_len() == SHAPES["train_4k"].seq_len == 4096
+
+
+def test_sharded_phase_gates_pass_on_the_cpu(monkeypatch):
+    """Phase 22's gates at smoke size on the CPU: VQ-OPT's smoke step at
+    [4, 32] under (2, 2) and (1, 4) grids of "cpu" entries against the 1x1
+    grid (loss, every gradient leaf), the placed state's steps with every
+    replica bitwise; phi4-mini's smoke config widened to dh 128 under a
+    (1, 2) grid; (c) and (d) skipped with one device."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.vq_opt_125m import smoke_config
+
+    _stub_card(monkeypatch)
+    phi4 = dataclasses.replace(get_config("phi4-mini-3.8b", smoke=True, vqt=True), head_dim=128)
+    out = cs.sharded_phase(cfg=smoke_config(), b=4, n=32, phi4=(phi4, 48, (1, 2)),
+                           device="cpu")
+    for name in ("2x2", "1x4"):
+        res = out["vq_opt"]["grids"][name]
+        assert res["loss_diff"] <= 1e-5 and res["grad_max_rel_err"] <= 1e-4
+        assert res["collective_bytes"]["model_sum"] > 0
+        assert res["launches"]["gated_attention"] > 0
+        steps = out["vq_opt_steps"][name]
+        assert steps["replicas_bitwise"] and steps["replicas_checked"] > 0
+        assert steps["collective_bytes"]["data_sum" if name == "2x2" else "model_sum"] > 0
+    assert out["phi4"]["grids"]["1x2"]["grad_max_rel_err"] <= 1e-4
+    assert out["phi4"]["grids"]["1x2"]["collective_bytes"]["model_gather"] > 0
+    assert out["cards"] == {"skipped": "needs 2 cards"}
+    assert out["deepseek_v2"] == {"skipped": "needs 4 cards"}
+
+
+def test_sharded_cards_steps_run_on_the_cpu(monkeypatch):
+    """Phase 22 (d) at smoke size: deepseek-v2's smoke config placed on a
+    (1, 4) grid of "cpu" entries (drawn whole, placed, freed; moments made
+    a block), two steps with finite losses; (c)'s placed steps on a (1, 2)
+    grid of two entries."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.vq_opt_125m import smoke_config
+
+    _stub_card(monkeypatch)
+    cfg = get_config("deepseek-v2-236b", smoke=True, vqt=True)
+    out = cs.deepseek_cards_steps(cfg, 32, [torch.device("cpu")] * 4)
+    assert len(out["lm_loss"]) == 2 and all(v == v for v in out["lm_loss"])
+    assert out["layers"] == cfg.n_layers and out["parameters"] > 0
+    steps = cs.sharded_state_steps(smoke_config(), 2, 32,
+                                   {"1x2": cs.grid_of((1, 2), ["cpu", "cpu"])}, share=True)
+    assert steps["1x2"]["replicas_bitwise"] and steps["1x2"]["collective_bytes"]["model_sum"] > 0
