@@ -254,8 +254,9 @@ and exits non-zero):
                 window, n=96), so the wide backward kernels run: the loss
                 within 1e-5 and every gradient leaf within 1e-4 of its
                 max. Then five models at full width, weights drawn on the
-                card from seed 0 (``FAMILY_TRAIN``): hymba-1.5b VQT (full
-                depth), phi4-mini-3.8B VQT (cut 32 -> 12), gemma3-12b VQT
+                card from seed 0 (``FAMILY_TRAIN``): hymba-1.5b VQT (cut
+                32 -> 8: its 3 global layers, 5 windowed), phi4-mini-3.8B
+                VQT (cut 32 -> 12), gemma3-12b VQT
                 (cut 48 -> 6, one global layer at dh=256), rwkv6-7b (cut
                 32 -> 4), deepseek-v2-236b VQT (cut 60 -> 1, its dense MLA
                 layer), each through ``make_train_step`` with remat for 3
@@ -293,6 +294,29 @@ and exits non-zero):
                 step function on the card goes through ``moe_apply_ep``
                 and gives the loss of ``make_train_step`` under a (1, 1)
                 grid, bitwise.
+22. sharded_train — the train step run by the sharding plan
+                (``sharded_phase``): VQ-OPT-125M under (2, 2) and (1, 4)
+                grids of the card against 1x1, placed steps with every
+                replica bitwise, phi4-mini (4 layers) under (1, 2); with
+                more cards a (1, k) grid of them. ``--phase
+                sharded_train`` runs it alone.
+23. sharded_decode — the decode caches' and the recurrent mixers' plans
+                (``sharded_decode_phase``), on grids whose entries repeat
+                the card: (a) hymba-1.5b at full width and depth, VQT and
+                plain, batch 1, caches of ``long_500k``'s 524,288 tokens
+                drawn from a seeded generator (``fill_caches``), 4 greedy
+                steps on a (4, 1) grid (the sequence over 4 rows) against
+                1x1; (b) phi4-mini-3.8B VQT and rwkv6-7b at full width, 4
+                layers, batch 8, 32,768-token caches, 8 steps on (2, 2);
+                (c) rwkv6-7b and hymba-1.5b (2 global, 2 windowed layers)
+                at full width, one train step at [1, 2048] on (1, 2)
+                against 1x1 (``sharded_check``). Greedy tokens equal,
+                logits within the 2e-3 decode gate, loss within 1e-5,
+                gradient leaves within 1e-4 of their max, cache replicas
+                bitwise; ms a step, bytes by kind, launches, peak memory.
+                ``--phase sharded_decode`` runs it alone; with four cards
+                it adds (a) with the sequence over the cards and rwkv6-7b
+                trained at full width on a (1, 4) grid of them.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line
 (``delta_gate`` at the threshold phase's most served r), and the last line
@@ -3155,6 +3179,7 @@ TRAIN_TIE = 1e-5  # top-two Gumbel VQ logits this close may flip between the car
 TRAIN_LOSS_TOL = 1e-5  # the card's step loss against the CPU's, relative
 TRAIN_GRAD_TOL = 1e-4  # each gradient leaf against the CPU's, relative to its max |.|
 TRAIN_DRAWS = 3  # draws of Gumbel noise card_vs_cpu_step takes to find one with no flip
+ULP_DRAWS = 3  # one-ulp moves of the weights whose largest reading sets a leaf's floor
 
 
 @contextlib.contextmanager
@@ -3400,9 +3425,10 @@ def train_phase(cfg=None, teacher_cfg=None, steps: int = 8, b: int = 8, n: int =
 # new AdamW moments and parameters (28 B a parameter) plus the activations
 # of the logits: phi4-mini at 32 layers (4.46 B parameters) or 16 would
 # need more than the card's 80 GB; gemma3 keeps one 5-local : 1-global
-# pattern (its global layer at dh = 256); rwkv6 4 layers, for the phase's
-# time; deepseek-v2 its dense MLA layer (an MoE layer adds 8 B parameters).
-FAMILY_TRAIN = (("hymba-1.5b", None), ("phi4-mini-3.8b", 12), ("gemma3-12b", 6),
+# pattern (its global layer at dh = 256); hymba 8 layers (its 3 global, 5
+# windowed) and rwkv6 4 layers, for the run's time (phase 23 came in);
+# deepseek-v2 its dense MLA layer (an MoE layer adds 8 B parameters).
+FAMILY_TRAIN = (("hymba-1.5b", 8), ("phi4-mini-3.8b", 12), ("gemma3-12b", 6),
                 ("rwkv6-7b", 4), ("deepseek-v2-236b", 1))
 # phase 20's card-against-CPU steps: (arch, head dim the smoke config's
 # heads are widened to, None to keep them, tokens): phi4-mini's and
@@ -3443,12 +3469,15 @@ def gated_attention_census():
 
 def family_train_cfg(arch: str, depth: int | None):
     """``arch``'s full-width config with VQT (where it applies), its first
-    stage's pattern repeated to ``depth`` layers (None: full depth)."""
+    stage's pattern repeated to ``depth`` layers (None: full depth;
+    hymba-1.5b keeps its 3 global layers, ``hymba_cut``)."""
     from repro_torch.configs import get_config
 
     full = get_config(arch, vqt=True)
     if depth is None:
         return full
+    if arch == "hymba-1.5b":
+        return hymba_cut(3, depth - 3)
     pattern = full.stages[0][0]
     return dataclasses.replace(full, n_layers=depth,
                                stages=((pattern, depth // len(pattern)),)).validate()
@@ -3866,14 +3895,21 @@ def grid_grads(params, cfg, batch: dict, noise, grid, placed: bool) -> dict:
 
 
 def sharded_check(params, cfg, b: int, n: int, grids: dict, device, placed=True,
-                  seed: int = 0) -> dict:
+                  seed: int = 0, ulp_floor: bool = False) -> dict:
     """One train step's loss and gradients of ``cfg`` at [b, n] under each
     of ``grids`` ({name: grid}) against the 1x1 grid of ``device``, with
     the same Gumbel noise (drawn for the whole batch, sliced to the rows):
     the loss within ``TRAIN_LOSS_TOL``, every gradient leaf within
     ``TRAIN_GRAD_TOL`` of its max. A VQ code that differs at a near tie
     (top two Gumbel logits within ``TRAIN_TIE``, ``first_layer_flips``)
-    redraws the noise, up to ``TRAIN_DRAWS`` draws."""
+    redraws the noise, up to ``TRAIN_DRAWS`` draws. With ``ulp_floor`` the
+    1x1 step is also run on the weights each moved by one part in 2^24
+    (``ulp_sensitivity``, with the same noise and no VQ code moved), and
+    each leaf's gate is the larger of ``TRAIN_GRAD_TOL`` and twice the most
+    that one of ``ULP_DRAWS`` such moves did to the leaf: no order of the
+    float sums can hold the grid nearer than the 1x1 step's own rounding
+    moves it, and one move's reading of a leaf varies from draw to draw
+    (``tools/grad_floor.py``)."""
     from repro_torch.common.pytree import path_names, tree_flatten_with_path
     from repro_torch.core import vq as vq_mod
     from repro_torch.data import SyntheticCorpus, lm_batches
@@ -3907,6 +3943,13 @@ def sharded_check(params, cfg, b: int, n: int, grids: dict, device, placed=True,
            "launches_1x1": base["launches"], "noise_draws": len(flips),
            "near_tie_flips": flips, "grids": {}}
     want = dict(tree_flatten_with_path(base["grads"]))
+    floor = ulp_sensitivity(params, cfg, batch, noise, one, base) if ulp_floor else {}
+    tol = {}
+    for path in want:
+        leaf = "/".join(path_names(path))
+        tol[leaf] = max([TRAIN_GRAD_TOL] + [2 * v for v in floor.get(leaf, [])])
+    if ulp_floor:
+        out["ulp_floor"] = floor
     for name, r in runs.items():
         diff = abs(r["loss"] - base["loss"])
         if diff > TRAIN_LOSS_TOL * max(1.0, abs(base["loss"])):
@@ -3917,15 +3960,46 @@ def sharded_check(params, cfg, b: int, n: int, grids: dict, device, placed=True,
             w = want[path]
             err["/".join(path_names(path))] = float((g - w).abs().max()) / max(
                 float(w.abs().max()), 1e-30)
-        worst = max(err, key=err.get)
-        if err[worst] > TRAIN_GRAD_TOL:
+        worst = max(err, key=lambda leaf: err[leaf] / tol[leaf])
+        if err[worst] > tol[worst]:
             raise AssertionError(f"sharded step {name}: gradient {worst} differs by "
-                                 f"{err[worst]} of its max (tolerance {TRAIN_GRAD_TOL})")
-        out["grids"][name] = dict(loss=r["loss"], loss_diff=diff, grad_max_rel_err=err[worst],
-                                  grad_worst_leaf=worst, seconds=r["seconds"],
+                                 f"{err[worst]} of its max (tolerance {tol[worst]})")
+        out["grids"][name] = dict(loss=r["loss"], loss_diff=diff,
+                                  grad_max_rel_err=max(err.values()), grad_worst_leaf=worst,
+                                  grad_tol=tol[worst], grad_err=err if ulp_floor else None,
+                                  seconds=r["seconds"],
                                   launches=r["launches"], collective_bytes=r["collective_bytes"],
                                   device_bytes=r["device_bytes"])
     return out
+
+
+def ulp_sensitivity(params, cfg, batch: dict, noise, grid, base: dict) -> dict:
+    """{leaf: [how far the gradients of ``params`` with every weight moved
+    by one part in 2^24 (a seeded random sign each) lie from ``base``'s
+    (``grid_grads`` of the unmoved weights with ``noise``), relative to the
+    leaf's max, for each of ``ULP_DRAWS`` moves]}. A move that changes a VQ
+    code is skipped; more than ``TRAIN_DRAWS`` skips fail."""
+    from repro_torch.common.pytree import path_names, tree_flatten_with_path, tree_map_with_path
+
+    want = dict(tree_flatten_with_path(base["grads"]))
+    out: dict = {}
+    for seed in range(1, ULP_DRAWS + TRAIN_DRAWS + 1):
+        gen = torch.Generator(device=torch.device(grid.devices.flat[0])).manual_seed(seed)
+
+        def moved(_path, x):
+            sign = torch.randint(0, 2, x.shape, generator=gen, device=x.device) * 2 - 1
+            return x * (1 + sign * 2.0 ** -24)
+
+        got = grid_grads(tree_map_with_path(moved, params), cfg, batch, noise, grid,
+                         placed=False)
+        if not all(torch.equal(a[0], c[0]) for a, c in zip(base["codes"], got["codes"])):
+            continue
+        for path, g in tree_flatten_with_path(got["grads"]):
+            out.setdefault("/".join(path_names(path)), []).append(
+                float((g - want[path]).abs().max()) / max(float(want[path].abs().max()), 1e-30))
+        if len(next(iter(out.values()))) == ULP_DRAWS:
+            return out
+    raise AssertionError(f"ulp_sensitivity: a VQ code moved in more than {TRAIN_DRAWS} draws")
 
 
 def sharded_state_steps(cfg, b: int, n: int, grids: dict, share=False) -> dict:
@@ -4041,7 +4115,7 @@ def deepseek_cards_steps(cfg, n: int, cards: list, steps: int = 2) -> dict:
             losses.append(float(m["lm_loss"]))
             crossed.append(dict(GRID_STATS["device_bytes"]))
     if not np.isfinite(losses).all():
-        raise AssertionError(f"deepseek-v2 on {len(cards)} cards: a loss is not finite: {losses}")
+        raise AssertionError(f"{cfg.name} on {len(cards)} cards: a loss is not finite: {losses}")
     out = dict(layers=n_layers(cfg), parameters=n_params, n=n, lm_loss=losses, step_ms=ms,
                resident_gb=resident,
                peak_gb={c: torch.cuda.max_memory_allocated(c) / 1e9 for c in names}
@@ -4121,6 +4195,243 @@ def sharded_phase(cfg=None, b: int = 8, n: int = 1024, phi4=SHARDED_PHI4, grids=
     return out
 
 
+# phase 23: (a) the long-context decode: arch, cache length (long_500k's),
+# greedy steps, the (data, model) grid; (b) batch decode: (arch, layers,
+# batch, cache length, steps) on a (2, 2) grid; (c) recurrent train steps:
+# (arch, tokens) on a (1, 2) grid
+SHARDED_LONG = ("hymba-1.5b", 524288, 4, (4, 1))
+SHARDED_BATCH = (("phi4-mini-3.8b", 4, 8, 32768, 8), ("rwkv6-7b", 4, 8, 32768, 8))
+SHARDED_BATCH_GRID = (2, 2)
+SHARDED_RECURRENT = (("rwkv6-7b", 2048), ("hymba-1.5b", 2048))
+SHARDED_RECURRENT_GRID = (1, 2)
+ATTENTION_CACHES = ("k", "v", "ckv", "krope")  # decode cache leaves a token at a slot
+
+
+def hymba_cut(n_global: int, n_local: int, vqt: bool = True):
+    """hymba-1.5b at full width: a global layer, ``n_local`` windowed
+    layers, then ``n_global - 1`` global layers."""
+    from repro_torch.configs import get_config
+
+    full = get_config("hymba-1.5b", vqt=vqt)
+    glob, local = full.stages[0][0][0], full.stages[1][0][0]
+    stages = (((glob,), 1), ((local,), n_local)) + ((((glob,), n_global - 1),)
+                                                   if n_global > 1 else ())
+    return dataclasses.replace(full, n_layers=n_global + n_local, stages=stages).validate()
+
+
+def fill_caches(caches: list, gen: torch.Generator, length: int) -> list:
+    """Decode caches drawn from ``gen`` (normal: k / v scaled 0.5, the
+    recurrent states and carries 0.1) with every ``len`` set to
+    ``length``: a long context without its prefill."""
+    from repro_torch.common.pytree import path_entry_name, tree_map_with_path
+    from repro_torch.models.transformer import set_cache_length
+
+    def one(path, leaf):
+        if not leaf.is_floating_point():
+            return leaf
+        scale = 0.5 if path_entry_name(path[-1]) in ATTENTION_CACHES else 0.1
+        return torch.randn(leaf.shape, generator=gen, device=leaf.device).mul_(scale)
+
+    return set_cache_length(tree_map_with_path(one, caches), length)
+
+
+def greedy_steps(params, cfg, caches, first, pos0: int, steps: int, grid, device) -> dict:
+    """``steps`` greedy decode steps under ``grid`` from ``caches`` (placed
+    with one copy an entry when the grid has more than one) and the [b, 1]
+    ``first`` tokens at position ``pos0``, the parameters placed once
+    before the loop: the tokens and logits a step, ms a step (host clock,
+    each ending in a sync), the kernels' launches and the collectives'
+    bytes over the steps (all, and those that crossed devices), the
+    parameter bytes the placement copied to other devices, the cache
+    replicas checked bitwise after the steps."""
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.distributed.context import GRID_STATS, reset_grid_stats, use_mesh
+    from repro_torch.launch.sharding import place, place_caches
+    from repro_torch.models import transformer as T
+
+    b = first.shape[0]
+    placed_bytes = 0
+    if grid.devices.size > 1:
+        caches = place_caches(caches, grid, batch=b, share=False)
+        home = tree_leaves(params)[0].device
+        params = place(params, grid, copy=False)
+        placed_bytes = sum(t.numel() * t.element_size() for leaf in tree_leaves(params)
+                           if hasattr(leaf, "distinct")
+                           for t in leaf.distinct() if t.device != home)
+    _, launches = launch_counters()
+    reset_launches()
+    reset_grid_stats()
+    cur, toks, logits, ms = first, [], [], []
+    with torch.no_grad(), use_mesh(grid):
+        for i in range(steps):
+            sync_all(device)
+            t0 = time.perf_counter()
+            out, caches = T.decode_step(params, cfg, cur, caches, torch.full(
+                (b, 1), pos0 + i, dtype=torch.int32, device=device))
+            cur = out[:, -1].argmax(-1).to(torch.int32)[:, None]
+            sync_all(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            toks.append(cur)
+            logits.append(out)
+    replicas = unequal = 0
+    for leaf in tree_leaves(caches):
+        for held in getattr(leaf, "replicas", lambda: [])():
+            replicas += len(held) - 1
+            unequal += sum(not torch.equal(held[0][1], t.to(held[0][1].device))
+                           for _, t in held[1:])
+    return dict(tokens=torch.cat(toks, 1), logits=torch.cat(logits, 1), ms=ms,
+                launches={k: v for k, v in launches().items() if v},
+                collective_bytes=dict(GRID_STATS["bytes"]),
+                device_bytes=dict(GRID_STATS["device_bytes"]), placed_bytes=placed_bytes,
+                replicas=replicas, unequal_replicas=unequal)
+
+
+def decode_grid_check(params, cfg, caches, first, pos0: int, steps: int, grids: dict,
+                      device) -> dict:
+    """``greedy_steps`` under the 1x1 grid of ``device`` and under each of
+    ``grids`` from the same caches: the greedy tokens equal, the logits
+    within the decode gate (``rows_close``), every cache replica bitwise
+    equal; ms a step (mean of the steps after the first), bytes by kind,
+    launches, the peak memory over the runs."""
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    base = greedy_steps(params, cfg, caches, first, pos0, steps, grid_of((1, 1), [device]),
+                        device)
+    out = {"steps": steps, "ms_step_1x1": float(np.mean(base["ms"][1:] or base["ms"])),
+           "ms_1x1": base["ms"], "launches_1x1": base["launches"], "grids": {}}
+    for name, grid in grids.items():
+        r = greedy_steps(params, cfg, caches, first, pos0, steps, grid, device)
+        if not torch.equal(r["tokens"], base["tokens"]):
+            raise AssertionError(f"decode {cfg.name} {name}: greedy tokens "
+                                 f"{r['tokens'].tolist()} against {base['tokens'].tolist()}")
+        close = rows_close(f"decode {cfg.name} {name}", r["logits"], base["logits"], None)
+        if r["unequal_replicas"]:
+            raise AssertionError(f"decode {cfg.name} {name}: {r['unequal_replicas']} of "
+                                 f"{r['replicas']} cache replicas differ")
+        out["grids"][name] = dict(ms_step=float(np.mean(r["ms"][1:] or r["ms"])), ms=r["ms"],
+                                  max_logits_diff=close["max_logits_diff"],
+                                  launches=r["launches"], collective_bytes=r["collective_bytes"],
+                                  device_bytes=r["device_bytes"],
+                                  placed_param_bytes=r["placed_bytes"],
+                                  replicas_checked=r["replicas"], replicas_bitwise=True)
+        del r
+    out["tokens"] = base["tokens"].tolist()
+    out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" \
+        else None
+    return out
+
+
+def cache_gb(caches) -> dict:
+    """The caches' GB: the attention k / v (or latents) of full and of ring
+    (windowed) layers, and the rest."""
+    from repro_torch.common.pytree import path_entry_name, tree_flatten_with_path
+
+    out = {"attention": 0.0, "other": 0.0}
+    for path, leaf in tree_flatten_with_path(caches):
+        kind = "attention" if path_entry_name(path[-1]) in ATTENTION_CACHES else "other"
+        out[kind] += leaf.numel() * leaf.element_size() / 1e9
+    return out
+
+
+def decode_run(cfg, b: int, length: int, steps: int, grids: dict, device, seed: int = 0
+               ) -> dict:
+    """Phase 23 (a) and (b): ``cfg`` (weights on ``device``'s generator
+    from ``seed``) at batch ``b``, caches of ``length`` slots drawn from
+    the generator with ``len`` ``length - steps - 1`` (``fill_caches``);
+    ``decode_grid_check`` over ``grids``."""
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = T.init_params(cfg, generator=gen, device=device)
+    start = length - steps - 1
+    caches = fill_caches(T.init_caches(cfg, b, length, device=device), gen, start)
+    first = torch.randint(0, cfg.vocab, (b, 1), generator=gen, device=device, dtype=torch.int32)
+    out = decode_grid_check(params, cfg, caches, first, start, steps, grids, device)
+    out.update(layers=n_layers(cfg), batch=b,
+               parameters=sum(t.numel() for t in tree_leaves(params)), cache_len=length,
+               cache_gb=cache_gb(caches),
+               global_layers=sum(layer.window is None for layer in cfg.layer_list()))
+    del params, caches
+    return out
+
+
+def sharded_decode_phase(long=None, batch=None, recurrent=None, device=None) -> dict:
+    """Phase 23: the decode caches and the recurrent mixers run by their
+    plans, on grids whose entries repeat the card. (a) ``long`` ((cfg,
+    length, steps) pairs; default hymba-1.5b VQT and plain, full width and
+    depth, at ``long_500k``'s 524,288 tokens, 4 greedy steps) on
+    ``SHARDED_LONG``'s (4, 1) grid (the sequence over 4 rows). (b)
+    ``batch`` ((cfg, b, length, steps); default phi4-mini VQT and
+    rwkv6-7b, 4 layers, batch 8, 32,768 tokens, 8 steps) on
+    ``SHARDED_BATCH_GRID``. (c) ``recurrent`` ((cfg, tokens); default
+    rwkv6-7b and hymba-1.5b at full width, 4 layers, [1, 2048]):
+    ``sharded_check`` on ``SHARDED_RECURRENT_GRID`` laid out in the
+    forward, each gradient leaf's gate at the 1x1 step's one-ulp floor
+    (``ulp_floor``). With four cards also (a)'s first model with the
+    sequence over the four cards, and rwkv6-7b trained at full width and
+    depth on a (1, 4) grid of them (``deepseek_cards_steps``; running out
+    of memory fails the phase)."""
+    from repro_torch.common.pytree import tensor_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    device = torch.device(device or DEVICE)
+    laps, lap = stopwatch()
+    on = lambda g: {"x".join(map(str, g)): grid_of(g, [device])}  # noqa: E731
+    long = long or [(get_config(SHARDED_LONG[0], vqt=vqt), SHARDED_LONG[1], SHARDED_LONG[2])
+                    for vqt in (True, False)]
+    batch = batch or [(family_train_cfg(a, layers), b, length, steps)
+                      for a, layers, b, length, steps in SHARDED_BATCH]
+    recurrent = recurrent or [(family_train_cfg("rwkv6-7b", 4), SHARDED_RECURRENT[0][1]),
+                              (hymba_cut(2, 2), SHARDED_RECURRENT[1][1])]
+
+    def free():
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    out = {"long": [], "batch": [], "train": []}
+    for cfg, length, steps in long:
+        out["long"].append(dict(arch=cfg.name, vqt=cfg.vqt is not None, **decode_run(
+            cfg, 1, length, steps, on(SHARDED_LONG[3]), device)))
+        free()
+    lap("a_long")
+    for cfg, b, length, steps in batch:
+        out["batch"].append(dict(arch=cfg.name, vqt=cfg.vqt is not None, **decode_run(
+            cfg, b, length, steps, on(SHARDED_BATCH_GRID), device)))
+        free()
+    lap("b_batch")
+    for cfg, n in recurrent:
+        params = init_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                             device=device)
+        with gated_attention_census() as census:
+            r = sharded_check(params, cfg, 1, n, on(SHARDED_RECURRENT_GRID), device,
+                              placed=False, ulp_floor=True)
+        r.update(arch=cfg.name, parameters=sum(t.numel() for t in tensor_leaves(params)),
+                 gated_attention_calls=census)
+        out["train"].append(r)
+        del params
+        free()
+    lap("c_train")
+    count = torch.cuda.device_count() if device.type == "cuda" else 1
+    if count >= 4:
+        cards = [torch.device("cuda", i) for i in range(4)]
+        cfg, length, steps = long[0]
+        out["long_cards"] = decode_run(cfg, 1, length, steps,
+                                       {"4x1_cards": grid_of((4, 1), cards)}, device)
+        free()
+        lap("a_cards")
+        out["rwkv6_cards"] = deepseek_cards_steps(family_train_cfg("rwkv6-7b", None),
+                                                  SHARDED_RECURRENT[0][1], cards)
+        free()
+        lap("rwkv6_cards")
+    else:
+        out["long_cards"] = out["rwkv6_cards"] = {"skipped": "needs 4 cards"}
+    out["laps_s"] = laps
+    return out
+
+
 def edit_roofline(srv, cfg, shapes: dict, busy_ms: float) -> dict:
     """Phase 8's dispatches priced by ``launch.roofline``: each (B, n_cap,
     C, R) of the profiled round at the module's H100 peaks and the
@@ -4190,9 +4501,10 @@ def main() -> int:
                         "gated_attention over (BH, nq, nk) and its backward over "
                         "(BH, n); a comma list of "
                         f"{SWEEPS} picks some (no other phase, no ok line)")
-    p.add_argument("--phase", choices=("sharded_train",),
+    p.add_argument("--phase", choices=("sharded_train", "sharded_decode"),
                    help="after the build, only phase 22 (with 4 cards visible its (c) "
-                        "and (d) across cards; no other phase, no ok line)")
+                        "and (d) across cards) or phase 23 (with 4 cards its long decode "
+                        "and rwkv6-7b's training across them); no other phase, no ok line")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4238,8 +4550,8 @@ def main() -> int:
         return 0
     if args.phase:
         t0 = time.perf_counter()
-        emit("sharded_train", **sharded_phase(), seconds=time.perf_counter() - t0,
-             nvidia_smi=smi)
+        run = sharded_phase if args.phase == "sharded_train" else sharded_decode_phase
+        emit(args.phase, **run(), seconds=time.perf_counter() - t0, nvidia_smi=smi)
         print(smi, flush=True)
         return 0
 
@@ -4459,6 +4771,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     shd = sharded_phase()
     emit("sharded_train", seconds=time.perf_counter() - t0, nvidia_smi=smi, **shd)
+
+    # ---- 23. sharded_decode: the decode caches' and the recurrent mixers' plans
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sdc = sharded_decode_phase()
+    emit("sharded_decode", seconds=time.perf_counter() - t0, nvidia_smi=smi, **sdc)
 
     # ---- summary
     c72 = next(f for f in fused if f["C"] == 72 and f["mask"] == "random")

@@ -17,9 +17,9 @@ allocated and no kernel launches. What it counts, per grid entry:
 * ``collective_bytes`` / ``collectives``: bytes the entry received from
   other entries, by kind (``distributed.context.GRID_STATS``), the
   gradients' all-reduce over the data axes counted as its operand;
-* ``memory.argument_bytes``: what the plan places on the entry (state and
-  batch blocks); ``output_bytes`` the outputs' blocks; ``temp_bytes``
-  null (live meta bytes are not tracked).
+* ``memory.argument_bytes``: what the plan places on the entry (state,
+  batch, decode caches and tokens: their blocks); ``output_bytes`` the
+  outputs' blocks; ``temp_bytes`` null (live meta bytes are not tracked).
 
 An op is attributed to the entry whose block the code computes
 (``context.at_entry``), in the backward to the entry its autograd node was
@@ -31,8 +31,9 @@ its partitioned module) and each quantity's maximum over entries.
 ``model_flops`` is the reference's (``dryrun.py:365-392``). The roofline
 terms price the reported entry at the port's H100 numbers
 (``launch.roofline``: FP32 outside the tensor cores, HBM) and NVLink.
-Decode shapes and the rwkv6 / hymba archs are not executed (ROADMAP item
-12b) and get their plan's ``argument_bytes`` and ``model_flops``.
+Every arch runs every shape it supports (``shape_supported``): train,
+prefill, and decode (one ``decode_step`` against caches of the shape's
+length laid out by ``launch.sharding.place_caches``, each taken as full).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch deepseek-v2-236b --shape train_4k
@@ -63,15 +64,19 @@ from repro_torch.distributed.context import (
 from repro_torch.kernels import _launch
 from repro_torch.launch import roofline
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.sharding import place, place_batch, place_state
-from repro_torch.launch.specs import SHAPES, ShapeCfg, input_specs, shape_supported
+from repro_torch.launch.sharding import (
+    batch_shardings, cache_shardings, lay_out, param_shardings, place, place_batch,
+    place_caches, place_state,
+)
+from repro_torch.launch.specs import (
+    SHAPES, ShapeCfg, decode_token_specs, input_specs, shape_supported,
+)
 from repro_torch.models import sharded
 from repro_torch.models import transformer as T
 
 # H100 SXM NVLink 4: 900 GB/s a GPU in both directions, 450 GB/s each way
 # (NVIDIA H100 data sheet)
 NVLINK_BW = 450e9
-NOT_EXECUTED = "ROADMAP item 12b: the recurrent mixers' and the decode caches' plans"
 _FREE = {torch.ops.aten.empty.memory_format, torch.ops.aten.empty_like.default,
          torch.ops.aten.empty_strided.default, torch.ops.aten.detach.default,
          torch.ops.aten.lift_fresh.default}
@@ -211,37 +216,60 @@ def _prefill(params, cfg: ArchConfig, batch: dict):
                       for row, t in zip(rows, last)])
 
 
+def decode_inputs(cfg: ArchConfig, shape: ShapeCfg) -> tuple[list, dict]:
+    """The decode step's caches (``init_caches`` of the shape's batch and
+    length, on meta) and its token and position stand-ins."""
+    return (T.init_caches(cfg, shape.global_batch, shape.seq_len, device="meta"),
+            decode_token_specs(cfg, shape))
+
+
 def count_step(cfg: ArchConfig, shape: ShapeCfg, grid, *, symmetric: bool = True) -> dict:
-    """Run ``shape``'s step (train or prefill) on ``grid`` (entries on
-    ``meta``) under the count; the per-entry numbers, the reported entry's
-    and their maxima. ``symmetric`` runs only data row 0
-    (``sharded.first_row_only``: every row does the same work) and reports
-    among its entries; ``tests/test_torch_dryrun.py`` holds it to the full
-    loop on mini grids."""
+    """Run ``shape``'s step (train, prefill or decode) on ``grid`` (entries
+    on ``meta``) under the count; the per-entry numbers, the reported
+    entry's and their maxima. ``symmetric`` runs only data row 0
+    (``sharded.first_row_only``: every row does the same work; a decode
+    whose caches split the sequence runs every row that holds a slice) and
+    reports among its entries; ``tests/test_torch_dryrun.py`` holds it to
+    the full loop on mini grids."""
     from repro_torch.training import make_schedule, make_train_step
 
     owners = WeakIdKeyDictionary()
+    one = grid.devices.size == 1
 
-    def lay(tree, how):  # a 1x1 grid runs the plain path, on whole leaves
-        return tree if grid.devices.size == 1 else how(tree, grid, share="row")
+    def lay(tree, how, **kw):  # a 1x1 grid runs the plain path, on whole leaves
+        return tree if one else how(tree, grid, share="row", **kw)
 
-    batch = input_specs(cfg, shape)
-    batch = batch if grid.devices.size == 1 else place_batch(batch, grid)
-    if shape.kind == "train":
-        state = lay(state_specs(cfg), place_state)
-        trees = (state.params, state.opt.mu, state.opt.nu)
-        step = make_train_step(cfg, make_schedule(peak_lr=3e-4, warmup_steps=100,
-                                                  total_steps=10_000))
-        run = lambda: step(state, batch)  # noqa: E731
-    else:
+    if shape.kind == "decode":
+        caches, batch = decode_inputs(cfg, shape)
+        caches = lay(caches, place_caches, batch=shape.global_batch)
+        if not one:  # tokens and positions each by ``batch_shardings``, as the
+            # reference's decode ``in_shardings`` (``dryrun.py:139-144``)
+            batch = {k: lay_out(v, batch_shardings({k: v}, grid)[k], share="row")
+                     for k, v in batch.items()}
         params = lay(T.init_params(cfg, generator=None, device="meta"), place)
-        trees = (params,)
-        run = lambda: _prefill(params, cfg, batch)  # noqa: E731
+        trees = (params, caches)
+        run = lambda: T.decode_step(params, cfg, batch["tokens"], caches,  # noqa: E731
+                                    batch["positions"])
+    else:
+        batch = input_specs(cfg, shape)
+        batch = batch if one else place_batch(batch, grid)
+        if shape.kind == "train":
+            state = lay(state_specs(cfg), place_state)
+            trees = (state.params, state.opt.mu, state.opt.nu)
+            step = make_train_step(cfg, make_schedule(peak_lr=3e-4, warmup_steps=100,
+                                                      total_steps=10_000))
+            run = lambda: step(state, batch)  # noqa: E731
+        else:
+            params = lay(T.init_params(cfg, generator=None, device="meta"), place)
+            trees = (params,)
+            run = lambda: _prefill(params, cfg, batch)  # noqa: E731
     args = defaultdict(int)
     for tree in trees:
         for k, v in _holders(tree, owners, grid).items():
             args[k] += v
-    outputs = dict(args) if shape.kind == "train" else {}
+    # a train step's outputs are its new state; a decode step's its new caches
+    outputs = defaultdict(int, dict(args) if shape.kind == "train" else
+                          _holders(trees[-1], owners, grid) if shape.kind == "decode" else {})
     for k, v in _holders(batch, owners, grid).items():
         args[k] += v
     entries = grid_index_rows(grid)[0] if symmetric else list(np.ndindex(grid.devices.shape))
@@ -260,8 +288,9 @@ def count_step(cfg: ArchConfig, shape: ShapeCfg, grid, *, symmetric: bool = True
     finally:
         _launch.META_COUNTER = prev
     if shape.kind != "train":  # the whole batch's logits, gathered on the first entry
-        rows = len(grid_index_rows(grid))
-        outputs[entries[0]] = out.numel() * out.element_size() * (rows if symmetric else 1)
+        logits = out[0] if shape.kind == "decode" else out
+        outputs[entries[0]] += logits.numel() * logits.element_size() * (
+            shape.global_batch // logits.shape[0])
     received = defaultdict(lambda: defaultdict(int))
     for (idx, kind), n in GRID_STATS["received"].items():
         received[idx][kind] += n
@@ -289,24 +318,27 @@ def count_step(cfg: ArchConfig, shape: ShapeCfg, grid, *, symmetric: bool = True
 
 def plan_argument_bytes(cfg: ArchConfig, shape: ShapeCfg, grid) -> int:
     """The most any entry holds of the plan's state (train: parameters and
-    two moments; otherwise parameters) and input blocks."""
-    from repro_torch.launch.sharding import batch_shardings, param_shardings
-
+    two moments; otherwise parameters), input blocks and, for decode, the
+    caches and the token and position blocks."""
     params = T.init_params(cfg, generator=None, device="meta")
     per = defaultdict(int)
 
-    def add(leaf, plan, copies=1):
-        for idx, sl in plan.blocks(tuple(leaf.shape)).items():
-            per[idx] += copies * int(np.prod([s.stop - s.start for s in sl])) \
-                * leaf.element_size()
+    def add(tree, plans, copies=1):
+        for (_, leaf), (_, plan) in zip(tree_flatten_with_path(tree),
+                                        tree_flatten_with_path(plans)):
+            for idx, sl in plan.blocks(tuple(leaf.shape)).items():
+                per[idx] += copies * int(np.prod([s.stop - s.start for s in sl])) \
+                    * leaf.element_size()
 
-    plans = tree_flatten_with_path(param_shardings(params, grid))
-    for (_, leaf), (_, plan) in zip(tree_flatten_with_path(params), plans):
-        add(leaf, plan, 3 if shape.kind == "train" else 1)
-    if shape.kind != "decode":
+    add(params, param_shardings(params, grid), 3 if shape.kind == "train" else 1)
+    if shape.kind == "decode":
+        caches, tok = decode_inputs(cfg, shape)
+        add(caches, cache_shardings(caches, grid, batch=shape.global_batch))
+        for k, v in tok.items():
+            add({k: v}, batch_shardings({k: v}, grid))
+    else:
         batch = input_specs(cfg, shape)
-        for k, plan in batch_shardings(batch, grid).items():
-            add(batch[k], plan)
+        add(batch, batch_shardings(batch, grid))
     return max(per.values())
 
 
@@ -350,13 +382,6 @@ def roofline_terms(full: dict, cfg: ArchConfig, shape: ShapeCfg) -> dict:
                       "link_bytes_per_s": NVLINK_BW}}
 
 
-def executable(cfg: ArchConfig, shape: ShapeCfg) -> tuple[bool, str]:
-    if shape.kind == "decode" or any(
-            layer.mixer in ("rwkv6", "hymba") for layer in cfg.layer_list()):
-        return False, NOT_EXECUTED
-    return True, ""
-
-
 def run_one(arch: str, shape_name: str, *, multi_pod: bool, roofline: bool,
             grid=None) -> dict:
     """One (arch, shape, grid) record; ``grid`` defaults to the production
@@ -370,12 +395,6 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool, roofline: bool,
     ok, why = shape_supported(cfg, shape)
     if not ok:
         rec.update(status="skipped", reason=why)
-        return rec
-    ok, why = executable(cfg, shape)
-    if not ok:
-        rec.update(status="not_executed", reason=why,
-                   memory={"argument_bytes": plan_argument_bytes(cfg, shape, grid)},
-                   model_flops=model_flops(cfg, shape))
         return rec
     try:
         rec["full"] = count_step(cfg, shape, grid)

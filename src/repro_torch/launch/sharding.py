@@ -22,10 +22,10 @@ Each function returns the tree with every leaf replaced by a
 block of the leaf each grid entry holds. ``place`` carries a plan out: each
 leaf becomes a ``distributed.context.Blocks`` of copies on the entries'
 devices (``place_state`` for a ``TrainState``, ``place_batch`` for a
-batch; ``unplace`` assembles the whole leaves again). ``models.sharded``
-runs the forward and the train step over such blocks, and lays a tree of
-whole leaves out on the fly (``lay_out``, differentiable) when it is given
-one.
+batch, ``place_caches`` for decode caches; ``unplace`` assembles the whole
+leaves again). ``models.sharded`` runs the forward, the train step and the
+decode step over such blocks, and lays a tree of whole leaves out on the
+fly (``lay_out``, differentiable) when it is given one.
 """
 from __future__ import annotations
 
@@ -185,16 +185,23 @@ def serving_batch_sharding(mesh: Grid, axis: str = "data") -> NamedSharding:
     return NamedSharding(mesh, P(axis))
 
 
+def decode_splits_batch(mesh: Grid, batch: int) -> bool:
+    """Whether ``cache_shardings`` splits a decode batch over the data axes
+    (batch >= their size and divisible by it); else the caches' sequence
+    axis goes on "data"."""
+    n_data = 1
+    for a in ("pod", "data"):
+        n_data *= mesh.shape.get(a, 1)
+    return batch % n_data == 0 and batch >= n_data
+
+
 def cache_shardings(caches, mesh: Grid, *, batch: int):
     """Decode caches. Layout (after the stage-stacking leading axis):
     k/v [r, b, S, Hkv, dh]; mla ckv [r, b, S, c]; ssm [r, b, H, dk, dv];
     'len' [r, b]. Batch >= data size -> shard batch; else shard the sequence
     axis on "data" (long-context batch-1 decode)."""
     data_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
-    n_data = 1
-    for a in data_axes:
-        n_data *= mesh.shape[a]
-    shard_batch = batch % max(n_data, 1) == 0 and batch >= n_data
+    shard_batch = decode_splits_batch(mesh, batch)
 
     def one(path, leaf):
         names = tuple(path_entry_name(p) for p in path)
@@ -301,6 +308,22 @@ def place_batch(batch: dict, mesh: Grid) -> dict:
 
     plans = batch_shardings(batch, mesh)
     return {k: lay_out(torch.as_tensor(v), plans[k]) for k, v in batch.items()}
+
+
+def place_caches(caches, mesh: Grid, *, batch: int, share=True):
+    """Decode caches (``transformer.init_caches``' tree) laid out by
+    ``cache_shardings`` (``lay_out``: each block a copy on its entry's
+    device; ``share`` as there). A split that does not divide its
+    dimension is dropped (``_divisible``): that leaf is replicated, and the
+    decode step updates it once and copies the update to every holder."""
+    plans = iter(s for _, s in tree_flatten_with_path(
+        cache_shardings(caches, mesh, batch=batch)))
+
+    def one(_path, leaf):
+        plan = next(plans)
+        return leaf if isinstance(leaf, Blocks) else lay_out(leaf, plan, share=share)
+
+    return tree_map_with_path(one, caches)
 
 
 def unplace(tree, device=None):

@@ -20,9 +20,8 @@ device, so a MoE layer goes through the expert-parallel
 (2, 16, 16) grids of CUDA devices (``make_mesh`` raises a ``ValueError``
 on a machine with fewer cards), place the train state there by its plan
 (``launch.sharding.place_state``) and run each step across the grid
-(``models.sharded``); archs with rwkv6 or hymba mixers raise
-``NotImplementedError`` there (ROADMAP item 12b). A checkpoint is saved
-from the assembled leaves.
+(``models.sharded``), every family alike. A checkpoint is saved from the
+assembled leaves.
 """
 from __future__ import annotations
 
@@ -38,7 +37,6 @@ from repro_torch.data import SyntheticCorpus, lm_batches
 from repro_torch.distributed.context import use_mesh
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.launch.sharding import place_state, unplace
-from repro_torch.models.sharded import check_supported
 from repro_torch.training import make_schedule, make_train_step, train_state_init
 
 
@@ -52,11 +50,8 @@ def make_grid(mesh: str, device):
 
 def place_for(state, cfg, grid):
     """``state`` placed on ``grid`` by its plan when the grid has more than
-    one entry (refusing what the grid path does not run); else as it is."""
-    if grid.devices.size == 1:
-        return state
-    check_supported(cfg)
-    return place_state(state, grid)
+    one entry; else as it is."""
+    return state if grid.devices.size == 1 else place_state(state, grid)
 
 
 def grid_step(step_fn, grid):

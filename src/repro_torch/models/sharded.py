@@ -27,15 +27,29 @@ row, the model axis runs Megatron-style tensor parallelism:
   exponentials and target logit over its vocab block, combined over model
   (3 floats a token an entry, where gathering the logits would move
   (M − 1)/M of b·n·V floats);
-* MoE layers go through ``moe.moe_ep_row`` with the row's tokens.
+* MoE layers go through ``moe.moe_ep_row`` with the row's tokens;
+* rwkv6's time mix: the token shift and the five stream mixes at home,
+  ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` by columns, each entry's WKV scan,
+  decay LoRA columns (its columns of ``w_dec_b``, ``w0`` and ``u``) and
+  per-head GroupNorm over its whole heads, ``w_o`` by rows; the channel
+  mix's ``relu²(xk·w_k)·w_v`` a row-split partial sum and its
+  ``sigmoid(xr·w_r)`` gathered at home before the product;
+* hymba's attention branch as GQA's; its SSM branch conv'd on each
+  ``conv_w`` block over the ``x`` columns of ``w_xz`` (split by columns
+  of the concatenation ``x | z``, so the columns are gathered), each
+  entry scanning its whole SSM heads with ``B`` / ``C`` / ``dt`` from
+  home; both branches' RMSNorms, the VQ and the fuse at home.
 
 A leaf replicated over the model axis is read only at home, so the
 gradient of each of its copies, summed over the copies
 (``context.reduce_replicas``), is the leaf's gradient. A tree of whole
 leaves is laid out on the fly (``sharding.lay_out``, differentiable), so
-its gradients are whole leaves. Every layer runs under ``at_entry`` of the
-entry that computes it, for the dry run's count. rwkv6 and hymba mixers
-raise: their plans are ROADMAP item 12b.
+its gradients are whole leaves. A replicated leaf that an entry needs a
+slice of (rwkv6's ``w_dec_b`` columns) is read from that entry's own
+copy: the copies' gradients still sum to the leaf's. Every layer runs
+under ``at_entry`` of the entry that computes it, for the dry run's
+count. ``models.sharded_decode`` runs the decode step on these rows,
+against caches laid out by ``launch.sharding.place_caches``.
 """
 from __future__ import annotations
 
@@ -55,17 +69,13 @@ from repro_torch.distributed.context import (
 )
 from repro_torch.models import moe
 from repro_torch.models.attention import apply_rope, full_attention
+from repro_torch.models.hymba import _causal_conv
+from repro_torch.models.linear_scan import (
+    CHUNK, lin_attn_chunked, lin_attn_decode_step,
+)
 from repro_torch.models.mla import mla_core
-from repro_torch.models.norms import apply_norm, rmsnorm
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the grid path does not run."""
-    for layer in cfg.layer_list():
-        if layer.mixer in ("rwkv6", "hymba") or layer.ffn == "rwkv_cm":
-            raise NotImplementedError(
-                f"{cfg.name}: the {layer.mixer} mixer's sharding plan does not run across a "
-                "grid yet (ROADMAP item 12b); train it under a 1x1 grid")
+from repro_torch.models.norms import apply_norm, groupnorm, rmsnorm
+from repro_torch.models.rwkv6 import _token_shift
 
 
 class Row:
@@ -158,16 +168,26 @@ def col_project(row: Row, xs: Scattered, w: Blocks, b: Optional[Blocks] = None) 
     return pieces
 
 
+def gather_range(grid, pieces: list, dst, lo: int, hi: int, kind: str,
+                 dim: int = -1) -> torch.Tensor:
+    """[lo, hi) of dimension ``dim`` of the tensor that ``pieces`` ([(grid
+    index, first index, piece)]) partition, on grid entry ``dst``: a piece
+    there as it is, the rest moved under ``kind``."""
+    parts = []
+    for src, plo, t in pieces:
+        size = t.shape[dim]
+        a, z = max(lo, plo), min(hi, plo + size)
+        if a < z:
+            part = t if (a, z) == (plo, plo + size) else t.narrow(dim, a - plo, z - a)
+            parts.append(move(part, src, dst, grid, kind))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
 def take_cols(row: Row, pieces: list, m: int, lo: int, hi: int) -> torch.Tensor:
     """Columns [lo, hi) (the last dim) of the tensor that ``pieces``
     partition, on entry m: its own piece as it is, the rest gathered."""
-    parts = []
-    for j, plo, t in pieces:
-        a, z = max(lo, plo), min(hi, plo + t.shape[-1])
-        if a < z:
-            part = t if (a, z) == (plo, plo + t.shape[-1]) else t[..., a - plo:z - plo]
-            parts.append(move(part, row.idx[j], row.idx[m], row.grid, "model_gather"))
-    return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+    return gather_range(row.grid, [(row.idx[j], plo, t) for j, plo, t in pieces], row.idx[m],
+                        lo, hi, "model_gather")
 
 
 def row_project_sum(row: Row, pieces: list, w: Blocks, b: Optional[Blocks] = None):
@@ -266,14 +286,14 @@ def _vq_and_mix(p: dict, cfg: ArchConfig, row: Row, outs: list, width: int, trai
     return y, (torch.zeros((), device=row.home) if aux is None else aux)
 
 
-def attn_rows(p: dict, cfg: ArchConfig, layer: LayerCfg, row: Row, h: torch.Tensor,
-              positions: torch.Tensor, *, train: bool, vq_noise) -> tuple:
-    """``attention.attn_apply`` on the row (σ through the ``gated_attention``
-    kernel on each entry's device, softmax plain)."""
-    b, n, _ = h.shape
+def attn_heads(p: dict, cfg: ArchConfig, layer: LayerCfg, row: Row, xs: Scattered,
+               ps: Scattered) -> list:
+    """Full attention on the row (σ through the ``gated_attention`` kernel
+    on each entry's device, softmax plain): [(model index, first column,
+    its whole heads' outputs)]."""
+    b, n, _ = xs.t.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     rep = H // Hkv
-    xs, ps = row.scatter(h), row.scatter(positions)
     qp = col_project(row, xs, p["wq"], p.get("bq"))
     kp = col_project(row, xs, p["wk"], p.get("bk"))
     vp = col_project(row, xs, p["wv"], p.get("bv"))
@@ -297,7 +317,14 @@ def attn_rows(p: dict, cfg: ArchConfig, layer: LayerCfg, row: Row, h: torch.Tens
             o = full_attention(q, k, v, causal=True, window=layer.window,
                                softmax=cfg.attn_softmax)
         outs.append((m, h0 * dh, o))
-    return _vq_and_mix(p, cfg, row, outs, H * dh, train, vq_noise)
+    return outs
+
+
+def attn_rows(p: dict, cfg: ArchConfig, layer: LayerCfg, row: Row, h: torch.Tensor,
+              positions: torch.Tensor, *, train: bool, vq_noise) -> tuple:
+    """``attention.attn_apply`` on the row."""
+    outs = attn_heads(p, cfg, layer, row, row.scatter(h), row.scatter(positions))
+    return _vq_and_mix(p, cfg, row, outs, cfg.n_heads * cfg.resolved_head_dim, train, vq_noise)
 
 
 def mla_rows(p: dict, cfg: ArchConfig, layer: LayerCfg, row: Row, h: torch.Tensor,
@@ -335,18 +362,189 @@ def mla_rows(p: dict, cfg: ArchConfig, layer: LayerCfg, row: Row, h: torch.Tenso
     return _vq_and_mix(p, cfg, row, outs, H * m_.v_dim, train, vq_noise)
 
 
+def rwkv_rows(p: dict, cfg: ArchConfig, row: Row, h: torch.Tensor, x_prev: torch.Tensor,
+              state=None) -> tuple[torch.Tensor, dict]:
+    """``rwkv6.rwkv_time_mix`` (``state`` None: a sequence from a zero
+    state, through the chunked scan) or ``rwkv_time_mix_step`` (``state(m,
+    h0, h1)``: entry m's heads' WKV state on its device) on the row, the
+    token-shifted stream ``x_prev`` at home. Returns (out at home, {model
+    index: (first head, its heads' new state)})."""
+    b, n, d = h.shape
+    dh = cfg.rwkv.head_dim
+    H = d // dh
+    with row.at(0):
+        mu = p["mu"].block(row.idx[0])
+        xr, xk, xv, xw, xg = (h + (x_prev - h) * mu[i] for i in range(5))
+        lora = torch.tanh(xw.to(torch.float32) @ p["w_dec_a"].block(row.idx[0]).to(torch.float32))
+    rp = col_project(row, row.scatter(xr), p["w_r"])
+    kp = col_project(row, row.scatter(xk), p["w_k"])
+    vp = col_project(row, row.scatter(xv), p["w_v"])
+    gp = []
+    for m, lo, g in col_project(row, row.scatter(xg), p["w_g"]):
+        with row.at(m):
+            gp.append((m, lo, F.silu(g)))
+    ls = row.scatter(lora)
+    outs, states = [], {}
+    for m in range(row.M):
+        h0, h1 = heads_of(row, m, H)
+        if h0 == h1:
+            continue
+        c0, c1, hm, e = h0 * dh, h1 * dh, h1 - h0, row.idx[m]
+        with row.at(m):
+            split = lambda a: a.reshape(b, n, hm, dh).movedim(2, 1)  # noqa: E731
+            r, k, v = (split(take_cols(row, pc, m, c0, c1)) for pc in (rp, kp, vp))
+            w_b = p["w_dec_b"].block(e)[:, c0:c1].to(torch.float32)
+            logw = split(-torch.exp(p["w0"].block(e)[c0:c1] + ls[m] @ w_b))
+            u = p["u"].block(e)[c0:c1].reshape(hm, dh)
+            if state is None:
+                pad = -n % CHUNK
+                if pad:
+                    r, k, v, logw = (F.pad(a, (0, 0, 0, pad)) for a in (r, k, v, logw))
+                y, s_new = lin_attn_chunked(r, k, v, logw, u=u, mamba_style=False)
+                y = y[:, :, :n]
+            else:
+                y, s_new = lin_attn_decode_step(r[:, :, 0], k[:, :, 0], v[:, :, 0],
+                                                logw[:, :, 0], state(m, h0, h1), u=u)
+                y = y[:, :, None]
+            y = groupnorm(y.movedim(1, 2).reshape(b, n, hm * dh).to(h.dtype), hm,
+                          p["gn_scale"].block(e)[c0:c1], p["gn_bias"].block(e)[c0:c1])
+            outs.append((m, c0, y * take_cols(row, gp, m, c0, c1)))
+        states[m] = (h0, s_new)
+    return row_project_sum(row, outs, p["w_o"]), states
+
+
+def channel_mix_rows(p: dict, row: Row, h: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
+    """``rwkv6.rwkv_channel_mix`` on the row: ``relu²(xk·w_k)·w_v`` by
+    ``w_k``'s columns and ``w_v``'s rows, summed at home; ``sigmoid(xr·
+    w_r)`` by ``w_r``'s columns, gathered at home; their product there."""
+    with row.at(0):
+        mu = p["mu"].block(row.idx[0])
+        xk = h + (x_prev - h) * mu[0]
+        xr = h + (x_prev - h) * mu[1]
+    hid, rs = [], []
+    for m, lo, u in col_project(row, row.scatter(xk), p["w_k"]):
+        with row.at(m):
+            hid.append((m, lo, torch.square(F.relu(u))))
+    kv = row_project_sum(row, hid, p["w_v"])
+    for m, lo, r in col_project(row, row.scatter(xr), p["w_r"]):
+        with row.at(m):
+            rs.append((m, lo, torch.sigmoid(r)))
+    with row.at(0):
+        return take_cols(row, rs, 0, 0, h.shape[-1]) * kv
+
+
+def conv_rows(p: dict, row: Row, xzp: list, conv_state=None) -> tuple[list, dict]:
+    """hymba's causal conv (then SiLU) by ``conv_w``'s column blocks, each
+    over the ``x`` columns of ``w_xz``'s pieces ``xzp`` gathered to the
+    block's entry; ``conv_state(m, lo, hi)`` (decode) its block of the
+    previous inputs. Returns ([(model index, first column, conv'd block)],
+    {model index: (first column, new conv state block)})."""
+    out, states = [], {}
+    for m, lo, hi in owners(p["conv_w"], row, -1):
+        e = row.idx[m]
+        with row.at(m):
+            xc, st = _causal_conv({"conv_w": p["conv_w"].block(e), "conv_b": p["conv_b"].block(e)},
+                                  take_cols(row, xzp, m, lo, hi),
+                                  None if conv_state is None else conv_state(m, lo, hi))
+        out.append((m, lo, xc))
+        states[m] = (lo, st)
+    return out, states
+
+
+def ssm_rows(p: dict, cfg: ArchConfig, row: Row, h: torch.Tensor, xzp: list, xcp: list,
+             state=None) -> tuple[list, dict]:
+    """hymba's SSM heads on the row: ``B``, ``C`` and the decay at home (their
+    weights replicated), each entry's whole heads scanned over its ``xc``
+    and ``z`` columns (``state`` None: the chunked scan from zero; else
+    ``state(m, h0, h1)``, one decode step). Returns ([(model index, first
+    column, the heads' gated output)], {model index: (first head, new
+    state)})."""
+    b, n, _ = h.shape
+    H, dh, ds = cfg.n_heads, cfg.resolved_head_dim, cfg.ssm.d_state
+    with row.at(0):
+        e = row.idx[0]
+        Bm, Cm = h @ p["w_B"].block(e), h @ p["w_C"].block(e)
+        dt = F.softplus(h.to(torch.float32) @ p["w_dt"].block(e).to(torch.float32)
+                        + p["dt_bias"].block(e))  # [b, n, H]
+        logw = -(dt * torch.exp(p["A_log"].block(e)))
+    sB, sC = row.scatter(Bm), row.scatter(Cm)
+    outs, states = [], {}
+    for m in range(row.M):
+        h0, h1 = heads_of(row, m, H)
+        if h0 == h1:
+            continue
+        hm = h1 - h0
+        dt_m, lw_m = (move(t[..., h0:h1], row.idx[0], row.idx[m], row.grid, "model_bcast")
+                      for t in (dt, logw))
+        with row.at(m):
+            xc = take_cols(row, xcp, m, h0 * dh, h1 * dh)
+            z = take_cols(row, xzp, m, H * dh + h0 * dh, H * dh + h1 * dh)
+            q = sC[m][:, None].expand(b, hm, n, ds)
+            k = sB[m][:, None].expand(b, hm, n, ds) * dt_m.movedim(-1, 1)[..., None]
+            v = xc.reshape(b, n, hm, dh).movedim(2, 1)
+            lw = lw_m.movedim(-1, 1)[..., None].expand(b, hm, n, ds)
+            if state is None:
+                pad = -n % CHUNK
+                if pad:
+                    q, k, v, lw = (F.pad(a, (0, 0, 0, pad)) for a in (q, k, v, lw))
+                y, s_new = lin_attn_chunked(q, k, v, lw, mamba_style=True)
+                y = y[:, :, :n]
+            else:
+                y, s_new = lin_attn_decode_step(q[:, :, 0], k[:, :, 0], v[:, :, 0], lw[:, :, 0],
+                                                state(m, h0, h1), mamba_style=True)
+                y = y[:, :, None]
+            outs.append((m, h0 * dh, y.movedim(1, 2).reshape(b, n, hm * dh).to(h.dtype)
+                         * F.silu(z)))
+        states[m] = (h0, s_new)
+    return outs, states
+
+
+def hymba_fuse(p: dict, cfg: ArchConfig, row: Row, attn_outs: list, ssm_outs: list,
+               train: bool, vq_noise) -> tuple:
+    """The two branches' outputs gathered at home, each RMSNorm'd over its
+    whole H·dh there, averaged; then the VQ at home and ``wo`` by rows."""
+    width = cfg.n_heads * cfg.resolved_head_dim
+    with row.at(0):
+        a = rmsnorm(at_home(p["norm_attn"], row), take_cols(row, attn_outs, 0, 0, width))
+        s = rmsnorm(at_home(p["norm_ssm"], row), take_cols(row, ssm_outs, 0, 0, width))
+        fused = 0.5 * (a + s)
+    return _vq_and_mix(p, cfg, row, [(0, 0, fused)], width, train, vq_noise)
+
+
+def hymba_rows(p: dict, cfg: ArchConfig, layer: LayerCfg, row: Row, h: torch.Tensor,
+               positions: torch.Tensor, *, train: bool, vq_noise) -> tuple:
+    """``hymba.hymba_apply`` on the row."""
+    xs = row.scatter(h)
+    attn = attn_heads(p, cfg, layer, row, xs, row.scatter(positions))
+    xzp = col_project(row, xs, p["w_xz"])
+    xcp, _ = conv_rows(p, row, xzp)
+    ssm, _ = ssm_rows(p, cfg, row, h, xzp, xcp)
+    return hymba_fuse(p, cfg, row, attn, ssm, train, vq_noise)
+
+
 def layer_rows(lp: dict, cfg: ArchConfig, layer: LayerCfg, row: Row, x: torch.Tensor,
                positions: torch.Tensor, noise: Optional[torch.Tensor], *,
                train: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """``transformer._layer_fwd`` on the row: (x, the layer's aux)."""
     with row.at(0):
         h = apply_norm(cfg.norm, at_home(lp["norm1"], row), x)
-    mixer = mla_rows if layer.mixer == "mla" else attn_rows
-    mix, aux = mixer(lp["mixer"], cfg, layer, row, h, positions, train=train, vq_noise=noise)
+    if layer.mixer == "rwkv6":
+        with row.at(0):
+            prev = _token_shift(h)
+        mix = rwkv_rows(lp["mixer"], cfg, row, h, prev)[0]
+        aux = torch.zeros((), device=row.home)
+    else:
+        mixer = {"mla": mla_rows, "hymba": hymba_rows}.get(layer.mixer, attn_rows)
+        mix, aux = mixer(lp["mixer"], cfg, layer, row, h, positions, train=train,
+                         vq_noise=noise)
     with row.at(0):
         x = x + mix
         h2 = apply_norm(cfg.norm, at_home(lp["norm2"], row), x)
-    if layer.ffn == "moe":
+    if layer.ffn == "rwkv_cm":
+        with row.at(0):
+            prev = _token_shift(h2)
+        y = channel_mix_rows(lp["ffn"], row, h2, prev)
+    elif layer.ffn == "moe":
         f = lp["ffn"]
         shared = (partial(ffn_rows, "swiglu", f["shared"], row) if "shared" in f else None)
         with row.at(0):
@@ -485,11 +683,12 @@ def row_inputs(t, rows: list, b_loc: int):
     return [t[row.r * b_loc:(row.r + 1) * b_loc].to(row.home) for row in rows]
 
 
-def _noise(cfg: ArchConfig, shape: tuple, li: int, gen, vq_noise, rows: list) -> list:
+def _noise(cfg: ArchConfig, layer: LayerCfg, shape: tuple, li: int, gen, vq_noise,
+           rows: list) -> list:
     """Layer ``li``'s Gumbel noise for the global batch (``vq_noise[li]``,
     else drawn from ``gen`` as ``transformer._layer_noise`` draws it), each
-    row's slice on its home; None without VQ."""
-    if cfg.vqt is None:
+    row's slice on its home; None without VQ (or for an rwkv6 layer)."""
+    if cfg.vqt is None or layer.mixer == "rwkv6":
         return [None] * len(rows)
     if vq_noise is not None:
         g = torch.as_tensor(vq_noise[li], dtype=torch.float32)
@@ -510,7 +709,6 @@ def run_rows(params: dict, cfg: ArchConfig, tokens, positions=None, *, patch_emb
     from repro_torch.models.transformer import _index
 
     grid = grid or active_grid()
-    check_supported(cfg)
     P = place(params, grid, copy=False)
     rows = rows_of(grid)
     shape = tuple(tokens.shape[:2])
@@ -548,7 +746,7 @@ def run_rows(params: dict, cfg: ArchConfig, tokens, positions=None, *, patch_emb
         for r_ in range(repeat):
             spr = _index(sp, r_)
             for layer, lp in zip(pattern, spr):
-                noise = (_noise(cfg, shape, li, rng, vq_noise, rows) if train
+                noise = (_noise(cfg, layer, shape, li, rng, vq_noise, rows) if train
                          else [None] * len(rows))
                 for r, row in enumerate(rows):
                     body = with_ctx(ctx, partial(layer_rows, lp, cfg, layer, row, train=train))
@@ -640,4 +838,3 @@ def lm_loss(params, cfg: ArchConfig, batch: dict, rng: Optional[torch.Generator]
     if cfg.mtp and "mtp" in P:
         loss = loss + 0.3 * mean_nll(lambda row, x, t, p: mtp_rows(P, cfg, row, x, t, p), 1)
     return loss, {"lm_loss": lm, "aux_loss": aux}
-

@@ -474,7 +474,14 @@ def prefill_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                 caches: list, positions: torch.Tensor) -> tuple[torch.Tensor, list]:
     """One new token per sequence. tokens: [b, 1] (audio [b, 1, cb]).
-    Returns (logits [b, 1, ...], new caches)."""
+    Returns (logits [b, 1, ...], new caches). Under a grid of more than one
+    entry the step runs the caches' plan (``models.sharded_decode``): the
+    caches come back laid out (``launch.sharding.place_caches``), the
+    logits whole."""
+    if active_grid() is not None:
+        from repro_torch.models import sharded_decode
+
+        return sharded_decode.decode_step(params, cfg, tokens, caches, positions)
     return _run_cached(params, cfg, tokens, caches, positions, _layer_decode)
 
 

@@ -5,7 +5,9 @@ caches and returns next-token logits (or sampled tokens) plus the updated
 caches — the continuous-batching inner loop. Sampling draws from an
 explicit ``torch.Generator`` where the reference takes a ``jax.random``
 key; the two give different draws, so only greedy decoding is held against
-the reference.
+the reference. Under a grid (``use_mesh`` of more than one entry) every
+step runs the caches' plan (``models.sharded_decode``): the loops take and
+return caches laid out on the grid (``launch.sharding.place_caches``).
 """
 from __future__ import annotations
 
@@ -14,12 +16,16 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.context import active_grid
 from repro_torch.models import transformer as T
 
 
 def make_serve_step(cfg: ArchConfig, *, sample: bool = False, temperature: float = 1.0):
     """Returns ``serve_step(params, caches, tokens, positions, generator?) ->
-    (next_tokens_or_logits, caches)``."""
+    (next_tokens_or_logits, caches)``. Under a grid, place the parameters
+    once (``launch.sharding.place(params, grid, copy=False)``): whole
+    parameters are laid out again on every call, which on a grid of
+    distinct cards copies them each step."""
 
     def serve_step(params, caches, tokens, positions,
                    generator: Optional[torch.Generator] = None):
@@ -70,7 +76,9 @@ def greedy_decode(params, cfg: ArchConfig, prompt: torch.Tensor, n_new: int,
     ONE ``prefill_step`` (``chunkable`` configs; else token by token), then
     generate ``n_new`` tokens. ``positions`` [b, n] / ``gen_positions``
     [b, n_new] override the dense 0..n+n_new-1 ids (gapped-id documents pass
-    their own). Returns (generated [b, n_new], caches)."""
+    their own). Under a grid the parameters are placed once, and the prompt
+    goes token by token (the first step places the caches by their plan).
+    Returns (generated [b, n_new], caches)."""
     b, n = prompt.shape[:2]
     if cache_len and cache_len < n + n_new:
         # full caches clamp out-of-range writes: generating past the end
@@ -80,12 +88,17 @@ def greedy_decode(params, cfg: ArchConfig, prompt: torch.Tensor, n_new: int,
     caches = T.init_caches(cfg, b, cache_len or (n + n_new), dtype=torch.float32,
                            device=dev)
     step = make_serve_step(cfg, sample=False)
+    grid = active_grid()
+    if grid is not None:
+        from repro_torch.launch.sharding import place
+
+        params = place(params, grid, copy=False)
     if positions is None:
         positions = torch.arange(n, dtype=torch.int32, device=dev).expand(b, n)
     if gen_positions is None:
         gen_positions = (positions[:, -1:] + 1
                          + torch.arange(n_new, dtype=torch.int32, device=dev))
-    if T.chunkable(cfg):
+    if T.chunkable(cfg) and grid is None:
         logits, caches = T.prefill_step(params, cfg, prompt, caches, positions)
         logits = logits[:, -1:]
     else:

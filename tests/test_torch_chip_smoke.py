@@ -607,12 +607,13 @@ def test_family_train_phase_gates_pass_on_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("arch,depth,layers,sigma", [
-    ("hymba-1.5b", None, 32, 3), ("phi4-mini-3.8b", 12, 12, 12), ("gemma3-12b", 6, 6, 1),
+    ("hymba-1.5b", 8, 8, 3), ("phi4-mini-3.8b", 12, 12, 12), ("gemma3-12b", 6, 6, 1),
     ("rwkv6-7b", 4, 4, 0), ("deepseek-v2-236b", 1, 1, 0)])
 def test_family_train_cuts_keep_the_published_widths(arch, depth, layers, sigma):
     """Phase 20's configs: each arch's full-width config with VQT, only the
-    depth cut (gemma3 to one 5-local : 1-global pattern, deepseek-v2 to its
-    dense MLA layer), and the σ layers that launch ``gated_attention``."""
+    depth cut (hymba to its 3 global and 5 windowed layers, gemma3 to one
+    5-local : 1-global pattern, deepseek-v2 to its dense MLA layer), and
+    the σ layers that launch ``gated_attention``."""
     from repro_torch.configs import get_config
 
     cfg = cs.family_train_cfg(arch, depth)
@@ -748,3 +749,55 @@ def test_sharded_cards_steps_run_on_the_cpu(monkeypatch):
     steps = cs.sharded_state_steps(smoke_config(), 2, 32,
                                    {"1x2": cs.grid_of((1, 2), ["cpu", "cpu"])}, share=True)
     assert steps["1x2"]["replicas_bitwise"] and steps["1x2"]["collective_bytes"]["model_sum"] > 0
+
+
+def test_sharded_decode_phase_gates_pass_on_the_cpu(monkeypatch):
+    """Phase 23's gates at smoke size on the CPU: (a) hymba with VQT and
+    plain (a windowed second layer: a ring of 16 over 4 rows), batch 1,
+    caches of 64 slots drawn with ``fill_caches``, 4 greedy steps on (4,
+    1) against 1x1 (one ``vq_assign`` a layer and row a step under VQT);
+    (b) phi4-mini and rwkv6 at batch 4 on (2, 2); (c) rwkv6 and hymba
+    train steps on (1, 2); the four-card items skipped with one device."""
+    from repro_torch.configs import get_config
+
+    _stub_card(monkeypatch)
+
+    def hymba(vqt):
+        cfg = get_config("hymba-1.5b", smoke=True, vqt=vqt)
+        local = dataclasses.replace(cfg.stages[1][0][0], window=16)
+        return dataclasses.replace(cfg, stages=(cfg.stages[0], ((local,), 1))).validate()
+
+    out = cs.sharded_decode_phase(
+        long=[(hymba(True), 64, 4), (hymba(False), 64, 4)],
+        batch=[(get_config(a, smoke=True, vqt=True), 4, 64, 4)
+               for a in ("phi4-mini-3.8b", "rwkv6-7b")],
+        recurrent=[(get_config("rwkv6-7b", smoke=True), 48), (hymba(True), 48)],
+        device="cpu")
+    for run in out["long"] + out["batch"]:
+        res = run["grids"]["4x1" if run in out["long"] else "2x2"]
+        assert res["max_logits_diff"] <= 2e-3 and res["replicas_bitwise"]
+        assert res["replicas_checked"] > 0
+    a = out["long"][0]
+    assert a["vqt"] and a["grids"]["4x1"]["collective_bytes"]["seq_combine"] > 0
+    assert a["grids"]["4x1"]["launches"]["vq_assign"] == 2 * 4  # a layer a step, at home
+    assert a["cache_gb"]["attention"] > 0 and a["global_layers"] == 1
+    assert out["batch"][0]["grids"]["2x2"]["collective_bytes"]["model_sum"] > 0
+    for r in out["train"]:
+        res = r["grids"]["1x2"]
+        assert res["loss_diff"] <= 1e-5 and res["grad_max_rel_err"] <= 1e-4
+        assert res["collective_bytes"]["model_gather"] > 0
+    for r in out["train"]:  # a gate a leaf: 1e-4, or twice its own one-ulp floor
+        res = r["grids"]["1x2"]
+        assert set(r["ulp_floor"]) == set(res["grad_err"]) and res["grad_tol"] >= 1e-4
+        assert all(len(v) == cs.ULP_DRAWS and min(v) >= 0 for v in r["ulp_floor"].values())
+    # one device: the parameters' placement copies nothing, no byte crosses devices
+    assert a["grids"]["4x1"]["placed_param_bytes"] == 0 and not a["grids"]["4x1"]["device_bytes"]
+    assert out["train"][1]["gated_attention_calls"]["backward"]
+    assert out["long_cards"] == out["rwkv6_cards"] == {"skipped": "needs 4 cards"}
+
+
+def test_hymba_cut_keeps_the_global_layers():
+    cfg = cs.hymba_cut(3, 5)
+    assert cfg.n_layers == 8 and cfg.d_model == 1600
+    assert [layer.window is None for layer in cfg.layer_list()] == [True] + [False] * 5 + [True] * 2
+    assert cs.family_train_cfg("hymba-1.5b", 8) == cfg

@@ -3,17 +3,19 @@
 ``tests/test_sharding.py::test_mini_dryrun_subprocess``.
 
 - The dry run executes on (2, 4) and (2, 2, 2) meta grids for
-  deepseek-v2's and VQ-OPT's smoke configs at train and prefill.
+  deepseek-v2's and VQ-OPT's smoke configs at train and prefill, and for
+  one family a cache kind (phi4-mini, deepseek-v2, hymba, rwkv6) at
+  decode with the batch split (8) and the sequence split (1), and the
+  recurrent two at train and prefill.
 - ``model_flops`` equals the reference's on every registry arch and
   ``SHAPES`` entry; ``argument_bytes`` equals what the reference's plan
-  puts on a device (its ``param_shardings`` / ``batch_shardings`` on an
-  Auto-axis mesh of 8 forced host devices, one subprocess).
+  puts on a device (its ``param_shardings`` / ``batch_shardings`` /
+  ``cache_shardings`` on an Auto-axis mesh of 8 forced host devices, one
+  subprocess; decode in f32 / int32, 4 B an element).
 - The counts behave as a plan's should: a (k, 1) grid's entry does 1/k of
   the 1x1 FLOPs; on a (1, M) grid each entry of a plan that splits every
   product does 1/M; running data row 0 alone (the symmetry ``--all``
   uses) gives the full loop's numbers for row 0's entries.
-- Decode shapes and the recurrent archs are ``not_executed`` (ROADMAP
-  item 12b).
 The reference's ``cost_analysis`` FLOPs on the mini meshes are printed
 beside the port's (no gate: XLA counts its own program).
 """
@@ -59,10 +61,23 @@ REF = textwrap.dedent("""
     from repro.training import make_schedule, make_train_step, train_state_init
 
     archs = json.loads(sys.argv[1])
-    out = {"model_flops": {}, "argument_bytes": {}, "flops": {}}
+    out = {"model_flops": {}, "argument_bytes": {}, "flops": {}, "decode_bytes": {},
+           "recurrent_train_bytes": {}}
+
+    def plan_bytes(per, tree, plan, itemsize=None):
+        for leaf, sh in zip(jax.tree.leaves(tree), jax.tree.leaves(plan)):
+            for dev, idx in sh.devices_indices_map(leaf.shape).items():
+                n = 1
+                for sl, dim in zip(idx, leaf.shape):
+                    n *= len(range(*sl.indices(dim)))
+                per[dev.id] = per.get(dev.id, 0) + n * (itemsize or leaf.dtype.itemsize)
+
     for a in archs:
         for s in SHAPES:
             out["model_flops"][f"{a}/{s}"] = dryrun.model_flops(get_config(a), SHAPES[s])
+    from repro.launch.sharding import cache_shardings
+    from repro.models import transformer as T
+
     for axes, shape in [(("data", "model"), (2, 4)), (("pod", "data", "model"), (2, 2, 2))]:
         mesh = jax.make_mesh(shape, axes, axis_types=(AxisType.Auto,) * len(axes))
         tag = "x".join(map(str, shape))
@@ -93,6 +108,26 @@ REF = textwrap.dedent("""
                 if isinstance(ca, (list, tuple)):
                     ca = ca[0]
                 out["flops"][f"{arch}/{tag}"] = float(ca.get("flops", 0))
+        for arch in ("phi4-mini-3.8b", "deepseek-v2-236b", "hymba-1.5b", "rwkv6-7b"):
+            cfg = get_config(arch, smoke=True)
+            with use_mesh(mesh):
+                params = jax.eval_shape(lambda: T.init_params(jax.random.PRNGKey(0), cfg))
+                for b in (8, 1):
+                    caches = jax.eval_shape(lambda: T.init_caches(cfg, b, 64, dtype=jnp.float32))
+                    per = {}
+                    plan_bytes(per, params, param_shardings(params, mesh), 4)
+                    plan_bytes(per, caches, cache_shardings(caches, mesh, batch=b), 4)
+                    for k in ("tokens", "positions"):
+                        tok = {k: jax.ShapeDtypeStruct((b, 1), jnp.int32)}
+                        plan_bytes(per, tok, batch_shardings(tok, mesh), 4)
+                    out["decode_bytes"][f"{arch}/{tag}/{b}"] = max(per.values())
+                if arch in ("hymba-1.5b", "rwkv6-7b"):
+                    batch = {"tokens": jax.ShapeDtypeStruct((8, 32), jnp.int32)}
+                    per = {}
+                    for _ in range(3):  # parameters and the two AdamW moments
+                        plan_bytes(per, params, param_shardings(params, mesh), 4)
+                    plan_bytes(per, batch, batch_shardings(batch, mesh))
+                    out["recurrent_train_bytes"][f"{arch}/{tag}"] = max(per.values())
     print(json.dumps(out))
 """)
 
@@ -175,18 +210,60 @@ def test_row_symmetry_gives_the_full_loops_numbers(grid, kind):
     assert abs(a["bytes"] - b["bytes"]) <= 2e-3 * a["bytes"]
 
 
-@pytest.mark.parametrize("arch,shape", [("deepseek-v2-236b", "decode_32k"),
-                                        ("rwkv6-7b", "train_4k"), ("hymba-1.5b", "prefill_32k")])
-def test_decode_and_recurrent_archs_are_not_executed(arch, shape):
-    rec = dryrun.run_one(arch, shape, multi_pod=False, roofline=False)
-    assert rec["status"] == "not_executed" and "ROADMAP item 12b" in rec["reason"]
-    assert rec["memory"]["argument_bytes"] > 0
-    assert rec["model_flops"] == dryrun.model_flops(get_config(arch), SHAPES[shape])
+DECODE = {"b8": ShapeCfg("mini", "decode", 64, 8), "b1": ShapeCfg("mini", "decode", 64, 1)}
+CACHE_ARCHS = ["phi4-mini-3.8b", "deepseek-v2-236b", "hymba-1.5b", "rwkv6-7b"]
+
+
+@pytest.mark.parametrize("batch", list(DECODE))
+@pytest.mark.parametrize("grid", list(MINI))
+@pytest.mark.parametrize("arch", CACHE_ARCHS)
+def test_decode_executes_with_the_references_argument_bytes(reference, arch, grid, batch):
+    """A decode step on the meta grid, its caches placed by their plan (a
+    batch of 8 splits over the data rows; a batch of 1 splits the
+    sequence): FLOPs, bytes and collectives counted; the plan's
+    parameters, caches, tokens and positions a device equal the
+    reference's."""
+    shape, axes = MINI[grid]
+    cfg = get_config(arch, smoke=True)
+    full = dryrun.count_step(cfg, DECODE[batch], _meta(shape, axes))
+    assert full["flops"] > 0 and full["bytes"] > 0 and full["collective_bytes"] > 0
+    want = reference["decode_bytes"][f"{arch}/{grid}/{batch[1:]}"]
+    assert full["memory"]["argument_bytes"] == want
+    assert dryrun.plan_argument_bytes(cfg, DECODE[batch], _meta(shape, axes)) == want
+    if batch == "b1" and arch != "rwkv6-7b":  # attention over the sequence rows
+        assert full["collectives"]["seq_combine"] > 0
+
+
+@pytest.mark.parametrize("kind", [TRAIN, PREFILL], ids=["train", "prefill"])
+@pytest.mark.parametrize("grid", list(MINI))
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b"])
+def test_recurrent_archs_execute(reference, arch, grid, kind):
+    shape, axes = MINI[grid]
+    cfg = get_config(arch, smoke=True)
+    full = dryrun.count_step(cfg, kind, _meta(shape, axes))
+    assert full["flops"] > 0 and full["collectives"]["model_sum"] > 0
+    if kind is TRAIN:
+        want = reference["recurrent_train_bytes"][f"{arch}/{grid}"]
+        assert full["memory"]["argument_bytes"] == want
+        assert dryrun.plan_argument_bytes(cfg, kind, _meta(shape, axes)) == want
+
+
+def test_symmetric_decode_gives_the_full_loops_numbers():
+    """The batch split's rows do the same work: data row 0 alone gives
+    the full loop's FLOPs and collectives for row 0's entries; under the
+    sequence split every row that holds a slice runs either way."""
+    cfg = get_config("hymba-1.5b", smoke=True, vqt=True)
+    for kind in DECODE.values():
+        a = dryrun.count_step(cfg, kind, _meta((2, 4)), symmetric=False)
+        b = dryrun.count_step(cfg, kind, _meta((2, 4)), symmetric=True)
+        for k in ("entry", "flops", "kernel_flops", "collectives", "memory"):
+            assert a[k] == b[k], (kind.global_batch, k)
 
 
 def test_cli_prints_a_record(capsys):
     dryrun.main(["--arch", "rwkv6-7b", "--shape", "long_500k", "--multi-pod"])
     lines = capsys.readouterr().out.splitlines()
     rec = json.loads(lines[-1])
-    assert rec["mesh"] == "2x16x16" and rec["status"] == "not_executed"
-    assert set(rec) >= {"arch", "shape", "status", "reason", "memory", "model_flops", "wall_s"}
+    assert rec["mesh"] == "2x16x16" and rec["status"] == "ok"
+    assert set(rec) >= {"arch", "shape", "status", "full", "wall_s"}
+    assert rec["full"]["flops"] > 0 and rec["full"]["memory"]["argument_bytes"] > 0

@@ -17,6 +17,7 @@ jitted step on an Auto-axis (2, 2) mesh of forced host devices.
   placed with one copy an entry, as on a grid of distinct cards).
 - The plan really splits: q, the FFN hidden and the vocab on every grid
   with a model axis, and a kv head cut in two on one.
+The recurrent families' steps are ``test_torch_sharded_recurrent.py``'s.
 """
 import dataclasses
 import os
@@ -219,19 +220,6 @@ def test_accumulation_under_a_grid(warm):
         got, m = step(place_state(state, grid), batch)
     assert abs(float(m["lm_loss"]) - float(m0["lm_loss"])) <= LOSS_TOL * float(m0["lm_loss"])
     _close(_flat(unplace(got.params)), _flat(want.params), LEAF_TOL, "accum")
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "hymba-1.5b"])
-def test_recurrent_mixers_refuse_a_grid(arch):
-    cfg = get_config(arch, smoke=True)
-    state = train_state_init(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-    with use_mesh(_grid((1, 2), ("data", "model"))), \
-            pytest.raises(NotImplementedError, match="ROADMAP item 12b"):
-        value_and_grad(lm_loss, state.params, cfg, _batch(cfg), None)
-    from repro_torch.launch import train
-
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12b"):
-        train.place_for(state, cfg, _grid((1, 2), ("data", "model")))
 
 
 def test_host_mesh_is_the_plain_step_bit_for_bit(capsys):
