@@ -18,7 +18,9 @@ and exits non-zero):
                 call): ``fused_step`` (B=4, n=1024, H=12, dh=Q=64, hq=2, C in
                 {8, 72, 264} with a random mask and C=72 with the engine's
                 causal one; the kernel's own device time by name beside the
-                call's), ``delta_gate`` (d=768, r from 64 to 2048: the
+                call's; the single-document ``fused_patch_assign`` at
+                n=1024, C=264 bitwise a B=1 batched launch, both counted),
+                ``delta_gate`` (d=768, r from 64 to 2048: the
                 served row counts; keep bits equal) beside the launch floor
                 (a one-element ``zero_()``), ``vq_assign`` (hq=2,
                 Q=64, dv=384; B=4 x N=1024, N=1024, N=32 and N=1, and
@@ -550,6 +552,34 @@ def check_fused_step(ops, ref, gen, C: int, B=4, n=1024, H=12, dh=64, Q=64, hq=2
                 plain_ms=plain["ms"], plain_call_ms=plain["call_ms"],
                 timing=kernel["timing"], bound_ms=bound_ms, bound_by=bound_by,
                 live_mask_fraction=live / mask.numel())
+
+
+def check_fused_step_single(ops, gen, C: int = 264, n: int = 1024, H: int = 12,
+                            dh: int = 64, Q: int = 64, hq: int = 2) -> dict:
+    """The single-document ``fused_patch_assign`` against a B = 1 launch of
+    ``fused_patch_assign_batched`` on the same inputs (on ``gen``'s
+    device): T and codes bitwise equal, each call one counted launch."""
+    dev = gen.device
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    mask = (torch.rand((n, C), generator=gen, device=dev) < 0.6).float()
+    mask[::7] = 0.0
+    counts = torch.randint(1, n + 1, (n,), generator=gen, device=dev).float()
+    args = (randn(n, H, dh), randn(H, C, dh), randn(H, C, dh), randn(H, C, Q),
+            randn(H, C, Q), mask, randn(n, H, Q), counts)
+    vq_bias = randn(hq, Q)
+    before = ops.LAUNCHES["fused_step"]
+    T, codes = ops.fused_patch_assign(*args, vq_bias, heads_per_vq=H // hq)
+    T_b, codes_b = ops.fused_patch_assign_batched(*(a[None] for a in args), vq_bias,
+                                                  heads_per_vq=H // hq)
+    launches = ops.LAUNCHES["fused_step"] - before
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    if not (torch.equal(T.view(torch.int32), T_b[0].view(torch.int32))
+            and torch.equal(codes, codes_b[0])):
+        raise AssertionError(f"fused_patch_assign C={C}: not bitwise the B=1 batched launch")
+    if launches != 2:
+        raise AssertionError(f"fused_patch_assign C={C}: {launches} counted launches, expected 2")
+    return dict(n=n, C=C, bitwise=True, launches=launches)
 
 
 def gate_work(r: int, d: int) -> tuple[int, int]:
@@ -4560,6 +4590,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     fused = [check_fused_step(ops, ref, gen, C) for C in (8, 72, 264)]
     fused.append(check_fused_step(ops, ref, gen, 72, causal=True))
+    fused_single = check_fused_step_single(ops, gen)
     gates = [check_delta_gate(ops, ref, gen, r, timed=True) for r in SWEEP_GATE[:-1]]
     floor = launch_floor()
     vqs = [check_vq_assign(vqk, gen, B, N) for B, N in ((4, 1024), (1, 1024), (1, 32), (1, 1))]
@@ -4573,7 +4604,7 @@ def main() -> int:
     ips = [check_incr_patch(ipk, gen, C) for C in (8, 72, 264)]
     ips.append(check_incr_patch(ipk, gen, 1032, B=1))  # the most served step
     emit("kernels", seconds=time.perf_counter() - t0, fused_step=fused,
-         delta_gate=gates, launch_floor=floor, vq_assign=vqs, gated_attention=gas,
+         fused_step_single=fused_single, delta_gate=gates, launch_floor=floor, vq_assign=vqs, gated_attention=gas,
          gated_attention_bwd=gabs, incr_patch=ips)
 
     # ---- 4. serve (the main path)

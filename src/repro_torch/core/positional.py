@@ -1,15 +1,52 @@
-"""Gapped position ids for sampled absolute positional embeddings (paper
-§3.3, App. B).
+"""Sampled absolute positional embeddings (paper §3.3, App. B) — the port
+of ``repro/core/positional.py``.
 
-The NumPy half of ``repro/core/positional.py``: the serving-time spreads
-and the ``PositionAllocator``. The training-time ``sample_positions`` is
-not needed by the serving path and is not ported. Gapped ids let a token
-insertion take a fresh id between its neighbours without shifting anyone
-else — the key to reusing activations across insert/delete edits.
+Training samples a random *ordered* subset of a large positional-embedding
+pool per document (``sample_positions``), so the network learns to use
+only the relative order of position ids. At serving time gapped ids
+(``spread_positions_gapped``, ``PositionAllocator``) let a token insertion
+take a fresh id between its neighbours without shifting anyone else — the
+key to reusing activations across insert/delete edits.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
+import torch
+
+from repro_torch.core.vq import gumbel as gumbel_noise
+
+
+def _sample(generator, lead: tuple, n: int, pool_size: int,
+            gumbel: Optional[torch.Tensor]) -> torch.Tensor:
+    if n > pool_size:
+        raise ValueError(f"n={n} > pool_size={pool_size}")
+    if gumbel is None:
+        gumbel = gumbel_noise(generator, lead + (pool_size,))
+    elif tuple(gumbel.shape) != lead + (pool_size,):
+        raise ValueError(f"gumbel noise must be {lead + (pool_size,)}, got {tuple(gumbel.shape)}")
+    # Gumbel top-k samples n ids without replacement; then sort them
+    idx = torch.topk(gumbel, n, dim=-1).indices
+    return torch.sort(idx, dim=-1).values.to(torch.int32)
+
+
+def sample_positions(generator: Optional[torch.Generator], n: int, pool_size: int, *,
+                     gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A sorted n-subset of [0, pool_size) as int32 [n] (training mode).
+    The Gumbel noise over the pool is drawn from ``generator`` on its
+    device, or taken from ``gumbel`` [pool_size] (a test passes the
+    reference's ``jax.random.gumbel`` noise, which torch's RNG cannot
+    give)."""
+    return _sample(generator, (), n, pool_size, gumbel)
+
+
+def sample_positions_batch(generator: Optional[torch.Generator], batch: int, n: int,
+                           pool_size: int, *,
+                           gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``sample_positions`` for ``batch`` documents: int32 [batch, n], from
+    noise [batch, pool_size] (drawn, or ``gumbel``)."""
+    return _sample(generator, (batch,), n, pool_size, gumbel)
 
 
 def spread_positions(n: int, pool_size: int) -> np.ndarray:

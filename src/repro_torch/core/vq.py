@@ -1,6 +1,7 @@
 """Multi-head vector quantization (paper §3 eq. 1, §4) — the port of
 ``repro/core/vq.py``: ``VQConfig``, ``init``, ``scores``, ``assign``,
-``lookup``, ``quantize`` and the training-mode ``forward_train``.
+``lookup``, ``quantize``, the training-mode ``forward_train`` and the
+joint code of ``combined_code`` / ``split_code``.
 Assignment uses the inner-product form of the Euclidean distance (App.
 A.2): ``argmin ‖x − c‖² == argmax (x·c − ‖c‖²/2)``. ``quantize`` runs the
 ``vq_assign`` kernel; ``forward_train`` computes its scores in plain code,
@@ -120,3 +121,23 @@ def forward_train(params: dict, x: torch.Tensor, cfg: VQConfig, *,
     aux = cfg.commitment_beta * commit + codebook_loss
     # straight-through on the values as well (the gradient reaches x unchanged)
     return x + (x_q - x).detach(), idx, aux
+
+
+def combined_code(idx: torch.Tensor, codebook_size: int) -> torch.Tensor:
+    """Combine per-head indices [..., h] into one int32 code, head 0 most
+    significant: the effective code space is q**h (paper §4). Requires
+    q**h < 2**31 (h <= 4 at q = 64)."""
+    code = idx[..., 0].to(torch.int32)
+    for i in range(1, idx.shape[-1]):
+        code = code * codebook_size + idx[..., i].to(torch.int32)
+    return code
+
+
+def split_code(code: torch.Tensor, codebook_size: int, n_heads: int) -> torch.Tensor:
+    """Inverse of ``combined_code``: [...] -> int32 [..., n_heads]."""
+    parts = []
+    c = code
+    for _ in range(n_heads):
+        parts.append(c % codebook_size)
+        c = c // codebook_size
+    return torch.stack(parts[::-1], dim=-1).to(torch.int32)

@@ -34,6 +34,23 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def fused_patch_assign(q, k_new, k_old, vc_new, vc_old, mask, T_base, counts,
+                       vq_bias, *, heads_per_vq: int):
+    """One document: q [n, H, dh]; k_* [H, C, dh]; vc_* [H, C, Q]; mask
+    [n, C]; T_base [n, H, Q]; counts [n]; vq_bias [hq, Q]. Returns (T_all
+    [n, H, Q] f32, codes [n, hq] int32) — the batched kernel's B = 1 view,
+    one launch."""
+    mask = mask.to(torch.float32)
+    if q.device.type == "cpu":
+        return fused_patch_assign_ref(q, k_new, k_old, vc_new, vc_old, mask,
+                                      T_base, counts, vq_bias)
+    T_all, codes = fused_patch_assign_batched(
+        *(a[None].contiguous() for a in (q, k_new, k_old, vc_new, vc_old, mask,
+                                         T_base, counts)),
+        vq_bias, heads_per_vq=heads_per_vq)
+    return T_all[0], codes[0]
+
+
 def fused_patch_assign_batched(q, k_new, k_old, vc_new, vc_old, mask, T_base,
                                counts, vq_bias, *, heads_per_vq: int):
     """q: [B, n, H, dh]; k_*: [B, H, C, dh]; vc_*: [B, H, C, Q];

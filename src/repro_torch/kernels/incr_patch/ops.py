@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.common.bucketing import next_pow2
 from repro_torch.kernels._launch import (
     FLOAT, INT, PTR, arrival_counts, bind, check, check_aligned, raise_on_error,
     require_cuda, stream_of,
@@ -23,6 +24,12 @@ LAUNCHES = {"incr_patch": 0}
 _DH = 64  # the head dim and codebook size the kernel is instantiated for
 _Q = 64
 _ROWS = 64  # rows of a CTA (csrc/patch_tile.cuh RT)
+
+
+def bucket_capacity(n: int, minimum: int = 8) -> int:
+    """The power-of-two capacity bucket of ``n`` dirty columns (at least
+    ``minimum``): each bucket is one step shape."""
+    return next_pow2(n, minimum)
 
 
 def split(B: int, R: int, H: int, C: int) -> bool:

@@ -26,6 +26,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, LayerCfg
 from repro_torch.core import vq as vq_mod
 from repro_torch.kernels.gated_attention import gated_attention
+from repro_torch.models import normal
 from repro_torch.models.flash import streaming_attention
 
 # sequences longer than this take the streaming path; a module attribute so
@@ -48,6 +49,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def attn_init(gen: torch.Generator, cfg: ArchConfig, layer: LayerCfg, r: tuple = ()) -> dict:
+    """GQA parameters (biases where ``cfg.attn_bias``, the VQ codebook where
+    ``cfg.vqt``) with leading dims ``r``, at the reference's scales (its
+    draws come from ``jax.random``, these from ``gen``)."""
+    d, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    dh = cfg.resolved_head_dim
+    zeros = lambda *s: torch.zeros(r + s, dtype=torch.float32)
+    mixer = {
+        "wq": normal(gen, r + (d, H * dh), d ** -0.5),
+        "wk": normal(gen, r + (d, Hkv * dh), d ** -0.5),
+        "wv": normal(gen, r + (d, Hkv * dh), d ** -0.5),
+        "wo": normal(gen, r + (H * dh, d), (H * dh) ** -0.5),
+    }
+    if cfg.attn_bias:
+        mixer.update(bq=zeros(H * dh), bk=zeros(Hkv * dh), bv=zeros(Hkv * dh),
+                     bo=zeros(d))
+    if cfg.vqt is not None:
+        mixer["vq"] = vq_mod.init(gen, H * dh, cfg.vqt, r)
+    return mixer
 
 
 def _qkv(params: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):

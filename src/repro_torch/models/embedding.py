@@ -1,6 +1,7 @@
 """Token and absolute positional embeddings (learned, and the paper's
 sampled positions), multi-codebook audio tokens and the vision prefix —
-``embed_tokens`` and ``merge_vision`` of ``repro/models/embedding.py``."""
+``embedding_init``, ``embed_tokens`` and ``merge_vision`` of
+``repro/models/embedding.py``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,6 +9,25 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import normal
+
+
+def embedding_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    """``tok`` [vocab, d] ([cb, vocab, d] with codebooks), ``pos`` (the
+    ``learned`` table [max_seq, d] or the ``sampled`` pool [pos_pool, d])
+    and the VLM's ``vis_proj`` [d, d], drawn from ``gen`` in that order at
+    the reference's scales."""
+    d, cb = cfg.d_model, cfg.n_codebooks
+    p = {"tok": normal(gen, (cb, cfg.vocab, d) if cb > 1 else (cfg.vocab, d), 0.02)}
+    if cfg.pos == "sampled":
+        p["pos"] = normal(gen, (cfg.pos_pool or cfg.max_seq * 100, d), 0.02)
+    elif cfg.pos == "learned":
+        p["pos"] = normal(gen, (cfg.max_seq, d), 0.02)
+    elif cfg.pos not in ("rope", "none"):
+        raise ValueError(f"unknown pos={cfg.pos!r}")
+    if cfg.input_mode == "vlm":
+        p["vis_proj"] = normal(gen, (d, d), d ** -0.5)
+    return p
 
 
 def embed_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,

@@ -34,6 +34,14 @@ def norm_init(kind: str, d: int, repeat: tuple = ()) -> dict:
     raise ValueError(kind)
 
 
+def rmsnorm_init(d: int, repeat: tuple = ()) -> dict:
+    return norm_init("rmsnorm", d, repeat)
+
+
+def layernorm_init(d: int, repeat: tuple = ()) -> dict:
+    return norm_init("layernorm", d, repeat)
+
+
 def apply_norm(kind: str, params: dict, x: torch.Tensor) -> torch.Tensor:
     if kind == "rmsnorm":
         return rmsnorm(params, x)

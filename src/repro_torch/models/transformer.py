@@ -75,10 +75,10 @@ from repro_torch.distributed.context import active_grid, get_ctx, with_ctx
 from repro_torch.models import normal
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.attention import (
-    attn_apply, attn_cache_init, attn_decode, attn_prefill,
+    attn_apply, attn_cache_init, attn_decode, attn_init, attn_prefill,
 )
-from repro_torch.models.embedding import embed_tokens, merge_vision
-from repro_torch.models.ffn import ffn_apply
+from repro_torch.models.embedding import embed_tokens, embedding_init, merge_vision
+from repro_torch.models.ffn import ffn_apply, ffn_init
 from repro_torch.models.hymba import hymba_apply, hymba_cache_init, hymba_decode, hymba_init
 from repro_torch.models.mla import mla_apply, mla_cache_init, mla_decode, mla_init
 from repro_torch.models.moe import moe_apply, moe_init
@@ -92,37 +92,6 @@ def _check_mixer(layer: LayerCfg) -> None:
         raise ValueError(f"unknown mixer {layer.mixer!r}")
 
 
-def _ffn_init(gen: torch.Generator, kind: str, d: int, d_ff: int, r: tuple) -> dict:
-    if kind in ("swiglu", "geglu"):
-        return {"w_gate": normal(gen, r + (d, d_ff), d ** -0.5),
-                "w_up": normal(gen, r + (d, d_ff), d ** -0.5),
-                "w_down": normal(gen, r + (d_ff, d), d_ff ** -0.5)}
-    if kind in ("gelu", "relu", "relu2"):
-        return {"w_up": normal(gen, r + (d, d_ff), d ** -0.5),
-                "b_up": torch.zeros(r + (d_ff,)),
-                "w_down": normal(gen, r + (d_ff, d), d_ff ** -0.5),
-                "b_down": torch.zeros(r + (d,))}
-    raise ValueError(kind)
-
-
-def _attn_init(gen: torch.Generator, cfg: ArchConfig, r: tuple) -> dict:
-    d, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-    dh = cfg.resolved_head_dim
-    zeros = lambda *s: torch.zeros(r + s, dtype=torch.float32)
-    mixer = {
-        "wq": normal(gen, r + (d, H * dh), d ** -0.5),
-        "wk": normal(gen, r + (d, Hkv * dh), d ** -0.5),
-        "wv": normal(gen, r + (d, Hkv * dh), d ** -0.5),
-        "wo": normal(gen, r + (H * dh, d), (H * dh) ** -0.5),
-    }
-    if cfg.attn_bias:
-        mixer.update(bq=zeros(H * dh), bk=zeros(Hkv * dh), bv=zeros(Hkv * dh),
-                     bo=zeros(d))
-    if cfg.vqt is not None:
-        mixer["vq"] = vq_mod.init(gen, H * dh, cfg.vqt, r)
-    return mixer
-
-
 def _layer_init(gen: torch.Generator, cfg: ArchConfig, layer: LayerCfg,
                 repeat: int) -> dict:
     _check_mixer(layer)
@@ -134,13 +103,13 @@ def _layer_init(gen: torch.Generator, cfg: ArchConfig, layer: LayerCfg,
     elif layer.mixer == "rwkv6":
         mixer = rwkv_mod.rwkv_init(gen, cfg, layer, r)
     else:
-        mixer = _attn_init(gen, cfg, r)
+        mixer = attn_init(gen, cfg, layer, r)
     if layer.ffn == "moe":
         ffn = moe_init(gen, cfg, r)
     elif layer.ffn == "rwkv_cm":
         ffn = rwkv_mod.cm_init(gen, cfg, r)
     else:
-        ffn = _ffn_init(gen, layer.ffn, d, cfg.d_ff, r)
+        ffn = ffn_init(gen, layer.ffn, d, cfg.d_ff, r)
     return {"norm1": norm_init(cfg.norm, d, r), "norm2": norm_init(cfg.norm, d, r),
             "mixer": mixer, "ffn": ffn}
 
@@ -163,17 +132,7 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     dev = resolve_device(device)
     d = cfg.d_model
     cb = cfg.n_codebooks
-    tok_shape = (cb, cfg.vocab, d) if cb > 1 else (cfg.vocab, d)
-    embed = {"tok": normal(generator, tok_shape, 0.02)}
-    if cfg.pos == "sampled":
-        embed["pos"] = normal(generator, (cfg.pos_pool or cfg.max_seq * 100, d), 0.02)
-    elif cfg.pos == "learned":
-        embed["pos"] = normal(generator, (cfg.max_seq, d), 0.02)
-    elif cfg.pos not in ("rope", "none"):
-        raise ValueError(f"unknown pos={cfg.pos!r}")
-    if cfg.input_mode == "vlm":
-        embed["vis_proj"] = normal(generator, (d, d), d ** -0.5)
-    params: dict = {"embed": embed}
+    params: dict = {"embed": embedding_init(generator, cfg)}
     params["stages"] = [
         tuple(_layer_init(generator, cfg, layer, repeat) for layer in pattern)
         for pattern, repeat in cfg.stages
@@ -184,7 +143,7 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     if cfg.mtp:
         params["mtp"] = {"norm_h": norm_init(cfg.norm, d), "norm_e": norm_init(cfg.norm, d),
                          "proj": normal(generator, (2 * d, d), (2 * d) ** -0.5),
-                         "ffn": _ffn_init(generator, "swiglu", d, cfg.d_ff, ()),
+                         "ffn": ffn_init(generator, "swiglu", d, cfg.d_ff),
                          "norm_f": norm_init(cfg.norm, d)}
     return _to(params, dev)
 

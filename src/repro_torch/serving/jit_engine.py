@@ -627,6 +627,10 @@ class JitIncrementalEngine:
 
     # ------------------------------------------------------------ outputs
 
+    def logits_last(self, state: JitState) -> torch.Tensor:
+        """Logits [vocab] at the last slot (``logits_at`` of slot -1)."""
+        return self.logits_at(state, -1)
+
     def logits_at(self, state: JitState, index) -> torch.Tensor:
         """Logits [vocab] at slot ``index`` (the slot of the document's last
         valid row in position order — the host scheduler tracks it)."""
