@@ -1307,11 +1307,13 @@ def suggest_phase(params, cfg, docs: dict, stream, n_new: int = 8, appends: int 
     ``appends`` tokens appended to the last (longest) document in round 0,
     which runs its continuation out of position ids (a defrag + retry).
     Every suggestion after every flush is held against the oracle."""
+    from repro_torch.serving import spans
     from repro_torch.serving.batch_server import BatchServer
     from repro_torch.serving.suggest import SuggestionEngine, oracle_suggestion
     from repro_torch.core.edits import Edit
 
     torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
     srv = BatchServer(params, cfg, device=DEVICE)
     srv.open_documents({k: list(v) for k, v in docs.items()})
     for did in docs:
@@ -1362,11 +1364,14 @@ def suggest_phase(params, cfg, docs: dict, stream, n_new: int = 8, appends: int 
     st, ss = srv.stats, srv.suggest_stats
     if st.suggest_headroom_defrags < 1:
         raise AssertionError("suggest: the appends did not force a headroom defrag")
+    # host ms of each real refresh, ending at the continuation's host read
+    refresh_ms = [(s.end - s.start) * 1e3 for s in spans.between(t_phase, time.perf_counter())
+                  if s.name == "refresh" and s.key in srv.docs]
     return dict(suggestions_checked=checked, near_tie_suggestions=near_ties,
                 vq_assign_launches=vq_launches,
                 headroom_defrags=st.suggest_headroom_defrags,
-                refreshes=st.suggest_refreshes, refresh_ms_median=st.refresh_latency.p50,
-                refresh_ms_max=st.refresh_latency.max_ms,
+                refreshes=st.suggest_refreshes, refresh_ms_median=float(np.median(refresh_ms)),
+                refresh_ms_max=max(refresh_ms),
                 prefill_rows_reused=ss.prefill_rows_reused,
                 prefill_rows_recomputed=ss.prefill_rows_recomputed,
                 rebuilds=ss.rebuilds, decode_steps=ss.decode_steps,

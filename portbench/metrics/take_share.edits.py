@@ -1,0 +1,7 @@
+"""The scheduler's takes (snapshots, bucket takes, grouping: ``take`` self
+time) as a share of the ``flush`` spans' time in the traced span, in %."""
+from portbench import program_spans
+
+
+def read(obs: dict):
+    return program_spans.flush_share(obs, ("take",))

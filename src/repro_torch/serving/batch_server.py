@@ -57,11 +57,20 @@ kernels' build cache at a directory that outlives the process
 Host mirrors are copied to the device with ``torch.tensor`` (never
 ``torch.from_numpy``, which would share storage with a mirror the next take
 mutates). The one host read per dispatch is the overflow vector.
+
+Host spans (``serving.spans``) mark the layers of a flush: ``flush`` >
+``step`` > ``take`` (snapshots, bucket takes, grouping) and ``dispatch`` >
+``gather`` (states made hot, stacked, buckets uploaded) / ``issue`` (the
+engine call) / ``wait`` (the overflow read) / ``scatter`` (states
+unstacked); the slow paths ``overflow``, ``grow`` and ``defrag``, each with
+its full forward as ``reingest``, under whichever span called them; and
+each real suggestion ``refresh``, with the suggester's ``export`` /
+``prefill`` / ``decode``. Spans of a flush carry its serial, those of a
+document's slow path or refresh the document's id.
 """
 from __future__ import annotations
 
 import os
-import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -86,6 +95,7 @@ from repro_torch.serving.jit_engine import (
     state_nbytes_for, state_to_host,
 )
 from repro_torch.serving.latency import LatencyStats
+from repro_torch.serving.spans import span
 from repro_torch.serving.state_store import StateStore
 from repro_torch.serving.suggest import (
     PositionHeadroomError, SuggestionEngine, SuggestStats,
@@ -114,8 +124,6 @@ class BatchStats:
     # continuation without a prefill (the watermarks were unchanged)
     suggest_headroom_defrags: int = 0  # refreshes that ran out of position
     # ids past the document (PositionHeadroomError), defragged and retried
-    # host time of each real refresh, ending at the continuation's host read
-    refresh_latency: LatencyStats = field(default_factory=LatencyStats)
     # ---- latency SLOs: per-request admission-to-completion histograms,
     # recorded by the async front end (serving.async_server)
     edit_latency: LatencyStats = field(default_factory=LatencyStats)
@@ -273,6 +281,7 @@ class BatchServer:
         self._shapes_seen: set = set()
         self.docs: dict[str, _BatchDoc] = {}
         self.stats = BatchStats()
+        self._flushes = 0  # serial of the latest flush: the key of its spans
         self._params = params
         self._sugg: Optional[SuggestionEngine] = None
         # streaming hook: when set, every REAL suggestion refresh calls
@@ -729,132 +738,143 @@ class BatchServer:
     def step(self) -> int:
         """One scheduling round: edit dispatches, then stale suggestion
         refreshes. Returns the number of edits applied."""
-        ready = [d for d in self.docs.values() if d.pending]
-        if not ready:
+        with span("step", self._flushes):
+            ready = [d for d in self.docs.values() if d.pending]
+            if not ready:
+                self._refresh_suggestions()
+                return 0
+            takes = []  # (doc, kind, arrays, count)
+            undone: dict[int, tuple] = {}  # id(doc) -> (doc, snapshot)
+            applied = 0
+            self._in_round = True
+            try:
+                with span("take", self._flushes):
+                    for d in ready:
+                        undone[id(d)] = (d, self._snapshot(d))
+                        kind, arrays, count = self._take_bucket(d)
+                        if count == 0:
+                            self._restore(d, undone.pop(id(d))[1])
+                            continue
+                        takes.append((d, kind, arrays, count))
+                    groups: dict[tuple, list] = {}
+                    for t in takes:
+                        groups.setdefault(
+                            (t[0].n_cap, self.C, t[0].row_capacity, t[1]),
+                            []).append(t)
+                for (n_cap, C, R, kind), members in sorted(groups.items(),
+                                                           key=lambda kv: kv[0]):
+                    for lo in range(0, len(members), self.max_batch):
+                        chunk = members[lo:lo + self.max_batch]
+                        applied += self._dispatch(chunk, n_cap, C, R, kind)
+                        for t in chunk:
+                            undone.pop(id(t[0]), None)
+            except Exception:
+                # a failed take or dispatch must not lose edits: every document
+                # not yet served rolls back to its pre-take snapshot
+                for d, snap in undone.values():
+                    self._restore(d, snap)
+                raise
+            finally:
+                self._in_round = False
             self._refresh_suggestions()
-            return 0
-        takes = []  # (doc, kind, arrays, count)
-        undone: dict[int, tuple] = {}  # id(doc) -> (doc, snapshot)
-        applied = 0
-        self._in_round = True
-        try:
-            for d in ready:
-                undone[id(d)] = (d, self._snapshot(d))
-                kind, arrays, count = self._take_bucket(d)
-                if count == 0:
-                    self._restore(d, undone.pop(id(d))[1])
-                    continue
-                takes.append((d, kind, arrays, count))
-            groups: dict[tuple, list] = {}
-            for t in takes:
-                groups.setdefault(
-                    (t[0].n_cap, self.C, t[0].row_capacity, t[1]),
-                    []).append(t)
-            for (n_cap, C, R, kind), members in sorted(groups.items(),
-                                                       key=lambda kv: kv[0]):
-                for lo in range(0, len(members), self.max_batch):
-                    chunk = members[lo:lo + self.max_batch]
-                    applied += self._dispatch(chunk, n_cap, C, R, kind)
-                    for t in chunk:
-                        undone.pop(id(t[0]), None)
-        except Exception:
-            # a failed take or dispatch must not lose edits: every document
-            # not yet served rolls back to its pre-take snapshot
-            for d, snap in undone.values():
-                self._restore(d, snap)
-            raise
-        finally:
-            self._in_round = False
-        self._refresh_suggestions()
-        return applied
+            return applied
 
     def flush(self) -> int:
         """Drain every queue; returns total edits applied. Stale suggestion
         subscriptions are refreshed too, also when there were no edits."""
-        total = 0
-        while self.pending_count():
-            total += self.step()
-        self._refresh_suggestions()  # no-op when every subscription is fresh
-        return total
+        self._flushes += 1
+        with span("flush", self._flushes):
+            total = 0
+            while self.pending_count():
+                total += self.step()
+            self._refresh_suggestions()  # no-op when every subscription is fresh
+            return total
 
     def _dispatch(self, chunk: list, n_cap: int, C: int, R: int,
                   kind: str) -> int:
-        eng = self.engine(C, R)
-        docs = [t[0] for t in chunk]
-        buckets = [t[2] for t in chunk]
-        counts = [t[3] for t in chunk]
-        keep = frozenset(d.doc_id for d in docs)
-        states = [self.store.ensure_hot(d, keep=keep) for d in docs]
-        # pad to a pow2 batch (a multiple of the mesh's blocks) with filler
-        # rows carrying empty edit buckets (all -1): no-op slices whose
-        # output is discarded. Members are placed to balance dirty-slot work
-        # across the per-device row blocks.
-        B_pad = self._padded_batch(len(chunk))
-        rows, loads = self._place_rows(counts, B_pad)
-        empty = (np.full(C, -1, np.int32), np.zeros(C, np.int32),
-                 np.zeros(C, np.int32), np.zeros(C, np.int32))
-        row_buckets = [buckets[i] if i is not None else empty for i in rows]
-        slot, tok, pos = (self._to_device(np.stack([b[i] for b in row_buckets]))
-                          for i in range(3))
-        batched = self._batch_rows(states, rows)
-        if kind == "replace":
-            new_state, overflow = eng.batch_apply_replaces(batched, slot, tok)
-        elif kind == "insert":
-            new_state, overflow = eng.batch_apply_inserts(batched, slot, tok, pos)
-        else:
-            new_state, overflow = eng.batch_apply_deletes(batched, slot)
-        # the dispatch's one host read, after every block's work is issued
-        overflow = overflow.cpu().numpy()
-        self.stats.batch_steps += 1
-        self.stats.batched_docs += len(chunk)
-        # the op vector is data: all three kinds share one step shape
-        self._count_shape(("edit", B_pad, n_cap, C, R))
-        self._note_balance(loads)
-        applied = 0
-        for b, i in enumerate(rows):
-            if i is None:
-                continue
-            doc = docs[i]
-            applied += counts[i]
-            self.stats.edits_applied += counts[i]
-            if overflow[b]:
-                self._fallback_full_forward(doc, self._block_device(b, B_pad))
-            else:
-                self.store.set_hot(doc, self._unstack_row(new_state, b, B_pad))
-        return applied
+        with span("dispatch", self._flushes):
+            eng = self.engine(C, R)
+            docs = [t[0] for t in chunk]
+            buckets = [t[2] for t in chunk]
+            counts = [t[3] for t in chunk]
+            with span("gather", self._flushes):
+                keep = frozenset(d.doc_id for d in docs)
+                states = [self.store.ensure_hot(d, keep=keep) for d in docs]
+                # pad to a pow2 batch (a multiple of the mesh's blocks) with
+                # filler rows carrying empty edit buckets (all -1): no-op
+                # slices whose output is discarded. Members are placed to
+                # balance dirty-slot work across the per-device row blocks.
+                B_pad = self._padded_batch(len(chunk))
+                rows, loads = self._place_rows(counts, B_pad)
+                empty = (np.full(C, -1, np.int32), np.zeros(C, np.int32),
+                         np.zeros(C, np.int32), np.zeros(C, np.int32))
+                row_buckets = [buckets[i] if i is not None else empty for i in rows]
+                slot, tok, pos = (self._to_device(np.stack([b[i] for b in row_buckets]))
+                                  for i in range(3))
+                batched = self._batch_rows(states, rows)
+            with span("issue", self._flushes):
+                if kind == "replace":
+                    new_state, overflow = eng.batch_apply_replaces(batched, slot, tok)
+                elif kind == "insert":
+                    new_state, overflow = eng.batch_apply_inserts(batched, slot, tok, pos)
+                else:
+                    new_state, overflow = eng.batch_apply_deletes(batched, slot)
+            # the dispatch's explicit host read, after every block's work is issued
+            with span("wait", self._flushes):
+                overflow = overflow.cpu().numpy()
+            self.stats.batch_steps += 1
+            self.stats.batched_docs += len(chunk)
+            # the op vector is data: all three kinds share one step shape
+            self._count_shape(("edit", B_pad, n_cap, C, R))
+            self._note_balance(loads)
+            applied = 0
+            with span("scatter", self._flushes):
+                for b, i in enumerate(rows):
+                    if i is None:
+                        continue
+                    doc = docs[i]
+                    applied += counts[i]
+                    self.stats.edits_applied += counts[i]
+                    if overflow[b]:
+                        self._fallback_full_forward(doc, self._block_device(b, B_pad))
+                    else:
+                        self.store.set_hot(doc, self._unstack_row(new_state, b, B_pad))
+            return applied
 
     # ------------------------------------------------------------ slow paths
 
     def _reingest(self, doc: _BatchDoc, device=None) -> None:
         """Rebuild device state from the host mirrors (one full forward) on
         ``device`` (default: where the state rests)."""
-        device = self._resting(doc) if device is None else device
-        eng = self.engine(self.C, self.R).on(device)
-        # admit the replacement up front (a grown buffer is bigger than the
-        # one it replaces; an evicted document brings wholly new bytes)
-        resident = (self.store.nbytes(doc.doc_id)
-                    if self.store.tier(doc.doc_id) == "hot" else 0)
-        self.store.admit(max(state_nbytes_for(doc.n_cap, eng.L, eng.meta)
-                             - resident, 0),
-                         keep=frozenset((doc.doc_id,)))
-        state = eng.full_forward(self._to_device(doc.tokens, device),
-                                 self._to_device(doc.positions, device),
-                                 self._to_device(doc.valid, device))
-        self.store.set_hot(doc, state)
-        # a from-scratch full forward again: every exported column is
-        # trustworthy for suggestion KV reuse
-        doc.touched_from = None
-        self.stats.full_forwards += 1
-        self._count_shape(("full", doc.n_cap))
+        with span("reingest", doc.doc_id):
+            device = self._resting(doc) if device is None else device
+            eng = self.engine(self.C, self.R).on(device)
+            # admit the replacement up front (a grown buffer is bigger than
+            # the one it replaces; an evicted document brings wholly new bytes)
+            resident = (self.store.nbytes(doc.doc_id)
+                        if self.store.tier(doc.doc_id) == "hot" else 0)
+            self.store.admit(max(state_nbytes_for(doc.n_cap, eng.L, eng.meta)
+                                 - resident, 0),
+                             keep=frozenset((doc.doc_id,)))
+            state = eng.full_forward(self._to_device(doc.tokens, device),
+                                     self._to_device(doc.positions, device),
+                                     self._to_device(doc.valid, device))
+            self.store.set_hot(doc, state)
+            # a from-scratch full forward again: every exported column is
+            # trustworthy for suggestion KV reuse
+            doc.touched_from = None
+            self.stats.full_forwards += 1
+            self._count_shape(("full", doc.n_cap))
 
     def _fallback_full_forward(self, doc: _BatchDoc, device) -> None:
         """Overflow: discard the unreliable batched slice, recompute from the
         host mirrors on the dispatch block's ``device``, and double the
         document's row bucket."""
-        self.stats.overflows += 1
-        self._reingest(doc, device)
-        if doc.row_capacity < doc.n_cap:
-            doc.row_capacity = min(doc.row_capacity * 2, doc.n_cap)
+        with span("overflow", doc.doc_id):
+            self.stats.overflows += 1
+            self._reingest(doc, device)
+            if doc.row_capacity < doc.n_cap:
+                doc.row_capacity = min(doc.row_capacity * 2, doc.n_cap)
 
     def _grow(self, doc: _BatchDoc) -> None:
         """Slot buffer full: step ``n_cap`` up to the next capacity class
@@ -862,30 +882,31 @@ class BatchServer:
         ``device_grow`` the resident state is padded on the device — no
         full forward, and the incremental history survives, so
         ``touched_from`` is kept. The suggestion cache's shape is void."""
-        old_cap, new_cap = doc.n_cap, self.padded_cap(doc.n_cap + 1)
-        for name, fill in (("tokens", 0), ("valid", False),
-                           ("positions", self._pos_sentinel)):
-            arr = getattr(doc, name)
-            grown = np.full(new_cap, fill, arr.dtype)
-            grown[:old_cap] = arr
-            setattr(doc, name, grown)
-        doc.free.extend(range(new_cap - 1, old_cap - 1, -1))
-        doc.n_cap = new_cap
-        self.stats.grows += 1
-        self._drop_suggest_cache(doc.doc_id)
-        if not self.device_grow:
-            self._reingest(doc)
-            return
-        eng = self.engine(self.C, self.R)
-        state = self.store.ensure_hot(doc, keep=frozenset((doc.doc_id,)))
-        self.store.admit(
-            state_nbytes_for(new_cap, eng.L, eng.meta)
-            - state_nbytes_for(old_cap, eng.L, eng.meta),
-            keep=frozenset((doc.doc_id,)))
-        self.store.set_hot(doc, eng.pad_state(state, new_cap,
-                                              pos_fill=self._pos_sentinel))
-        self.stats.device_grows += 1
-        self._count_shape(("pad", old_cap, new_cap))
+        with span("grow", doc.doc_id):
+            old_cap, new_cap = doc.n_cap, self.padded_cap(doc.n_cap + 1)
+            for name, fill in (("tokens", 0), ("valid", False),
+                               ("positions", self._pos_sentinel)):
+                arr = getattr(doc, name)
+                grown = np.full(new_cap, fill, arr.dtype)
+                grown[:old_cap] = arr
+                setattr(doc, name, grown)
+            doc.free.extend(range(new_cap - 1, old_cap - 1, -1))
+            doc.n_cap = new_cap
+            self.stats.grows += 1
+            self._drop_suggest_cache(doc.doc_id)
+            if not self.device_grow:
+                self._reingest(doc)
+                return
+            eng = self.engine(self.C, self.R)
+            state = self.store.ensure_hot(doc, keep=frozenset((doc.doc_id,)))
+            self.store.admit(
+                state_nbytes_for(new_cap, eng.L, eng.meta)
+                - state_nbytes_for(old_cap, eng.L, eng.meta),
+                keep=frozenset((doc.doc_id,)))
+            self.store.set_hot(doc, eng.pad_state(state, new_cap,
+                                                  pos_fill=self._pos_sentinel))
+            self.stats.device_grows += 1
+            self._count_shape(("pad", old_cap, new_cap))
 
     def _defrag(self, doc: _BatchDoc) -> None:
         """Gap exhaustion: re-spread every position id evenly (paper §3.3).
@@ -893,44 +914,46 @@ class BatchServer:
         full forward is unavoidable; with ``device_defrag`` the slot
         compaction before it runs on the device (``gather_slots``) and feeds
         the same ``full_forward`` a re-ingest would run."""
-        self.stats.defrags += 1
-        # every position id changes: nothing in the decode cache is reusable
-        self._drop_suggest_cache(doc.doc_id)
-        doc.invalid_from = 0
-        self._stale(doc)
-        if not self.device_defrag:
+        with span("defrag", doc.doc_id):
+            self.stats.defrags += 1
+            # every position id changes: nothing in the decode cache is reusable
+            self._drop_suggest_cache(doc.doc_id)
+            doc.invalid_from = 0
+            self._stale(doc)
+            if not self.device_defrag:
+                doc.allocator.defragment()
+                doc.positions[np.asarray(doc.slots, np.int64)] = \
+                    doc.allocator.snapshot()
+                self._reingest(doc)
+                return
+            state = self.store.ensure_hot(doc, keep=frozenset((doc.doc_id,)))
+            dev = state.x.device
+            eng = self.engine(self.C, self.R).on(dev)
+            n = doc.n
+            # compaction permutation: live slots in sequence order, then the
+            # free tail — slot i of the permuted buffers is token i
+            order = np.concatenate([np.asarray(doc.slots, np.int32),
+                                    np.asarray(doc.free, np.int32)])
             doc.allocator.defragment()
-            doc.positions[np.asarray(doc.slots, np.int64)] = \
-                doc.allocator.snapshot()
-            self._reingest(doc)
-            return
-        state = self.store.ensure_hot(doc, keep=frozenset((doc.doc_id,)))
-        dev = state.x.device
-        eng = self.engine(self.C, self.R).on(dev)
-        n = doc.n
-        # compaction permutation: live slots in sequence order, then the
-        # free tail — slot i of the permuted buffers is token i
-        order = np.concatenate([np.asarray(doc.slots, np.int32),
-                                np.asarray(doc.free, np.int32)])
-        doc.allocator.defragment()
-        permuted = eng.gather_slots(state, self._to_device(order, dev))
-        new_positions = np.full(doc.n_cap, self._pos_sentinel, np.int32)
-        new_positions[:n] = doc.allocator.snapshot()
-        new_valid = np.zeros(doc.n_cap, bool)
-        new_valid[:n] = True
-        self.store.set_hot(doc, eng.full_forward(
-            permuted.tokens, self._to_device(new_positions, dev),
-            self._to_device(new_valid, dev)))
-        # host mirrors follow the compaction so slot indices keep matching
-        doc.tokens = doc.tokens[order]
-        doc.valid = new_valid
-        doc.positions = new_positions
-        doc.slots = list(range(n))
-        doc.free = list(range(doc.n_cap - 1, n - 1, -1))
-        doc.touched_from = None
-        self.stats.device_defrags += 1
-        self.stats.full_forwards += 1
-        self._count_shape(("full", doc.n_cap))
+            permuted = eng.gather_slots(state, self._to_device(order, dev))
+            new_positions = np.full(doc.n_cap, self._pos_sentinel, np.int32)
+            new_positions[:n] = doc.allocator.snapshot()
+            new_valid = np.zeros(doc.n_cap, bool)
+            new_valid[:n] = True
+            with span("reingest", doc.doc_id):
+                self.store.set_hot(doc, eng.full_forward(
+                    permuted.tokens, self._to_device(new_positions, dev),
+                    self._to_device(new_valid, dev)))
+            # host mirrors follow the compaction so slot indices keep matching
+            doc.tokens = doc.tokens[order]
+            doc.valid = new_valid
+            doc.positions = new_positions
+            doc.slots = list(range(n))
+            doc.free = list(range(doc.n_cap - 1, n - 1, -1))
+            doc.touched_from = None
+            self.stats.device_defrags += 1
+            self.stats.full_forwards += 1
+            self._count_shape(("full", doc.n_cap))
 
     # ------------------------------------------------------------ suggestions
 
@@ -992,36 +1015,35 @@ class BatchServer:
             doc.suggest_fresh = True
             self.stats.suggest_cached_hits += 1
             return
-        sugg = self.suggester
-        eng = self.engine(self.C, self.R)
-        self.store.ensure_hot(doc)  # the KV export reads the device state
-        on_token = None
-        if self.on_suggest_token is not None:
-            serial, hook = doc.suggest_serial + 1, self.on_suggest_token
+        with span("refresh", doc.doc_id):
+            sugg = self.suggester
+            eng = self.engine(self.C, self.R)
+            self.store.ensure_hot(doc)  # the KV export reads the device state
+            on_token = None
+            if self.on_suggest_token is not None:
+                serial, hook = doc.suggest_serial + 1, self.on_suggest_token
 
-            def on_token(tok, _id=doc.doc_id, _serial=serial, _hook=hook):
-                _hook(_id, _serial, int(np.asarray(tok).reshape(-1)[0]))
-        t0 = time.perf_counter()
-        try:
-            toks = sugg.refresh(
-                eng.on(self._resting(doc)), doc.state, key=doc.doc_id,
-                n_new=doc.suggest_n, invalid_from=doc.invalid_from,
-                export_invalid_from=doc.touched_from, on_token=on_token)
-        except PositionHeadroomError:
-            # the tail gap is exhausted: re-spread the ids (a defrag and its
-            # full forward) and retry once
-            self.stats.suggest_headroom_defrags += 1
-            self._defrag(doc)
-            toks = sugg.refresh(
-                eng.on(self._resting(doc)), doc.state, key=doc.doc_id,
-                n_new=doc.suggest_n, invalid_from=doc.invalid_from,
-                export_invalid_from=doc.touched_from, on_token=on_token)
-        self.stats.refresh_latency.record((time.perf_counter() - t0) * 1e3)
-        doc.suggestion = toks
-        doc.suggest_fresh = True
-        doc.invalid_from = None
-        doc.suggest_serial += 1
-        self.stats.suggest_refreshes += 1
+                def on_token(tok, _id=doc.doc_id, _serial=serial, _hook=hook):
+                    _hook(_id, _serial, int(np.asarray(tok).reshape(-1)[0]))
+            try:
+                toks = sugg.refresh(
+                    eng.on(self._resting(doc)), doc.state, key=doc.doc_id,
+                    n_new=doc.suggest_n, invalid_from=doc.invalid_from,
+                    export_invalid_from=doc.touched_from, on_token=on_token)
+            except PositionHeadroomError:
+                # the tail gap is exhausted: re-spread the ids (a defrag and
+                # its full forward) and retry once
+                self.stats.suggest_headroom_defrags += 1
+                self._defrag(doc)
+                toks = sugg.refresh(
+                    eng.on(self._resting(doc)), doc.state, key=doc.doc_id,
+                    n_new=doc.suggest_n, invalid_from=doc.invalid_from,
+                    export_invalid_from=doc.touched_from, on_token=on_token)
+            doc.suggestion = toks
+            doc.suggest_fresh = True
+            doc.invalid_from = None
+            doc.suggest_serial += 1
+            self.stats.suggest_refreshes += 1
 
     # ------------------------------------------------------------- outputs
 

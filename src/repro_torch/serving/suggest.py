@@ -14,6 +14,10 @@ reference's module docstring for the design; in short:
    a power of two;
 3. the continuation is ``serving.decode`` greedy steps.
 
+A refresh records three host spans (``serving.spans``), keyed by ``key``:
+``export`` (the host order and the KV export), ``prefill`` (the bucketed
+chunk) and ``decode`` (the greedy steps and the final host read).
+
 Contract: the suggestion equals the from-scratch decode oracle
 (``oracle_suggestion``) token for token after every edit, and the reuse
 counts in ``SuggestStats`` equal the reference's.
@@ -31,6 +35,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as T
 from repro_torch.serving.decode import greedy_continue, make_serve_step
 from repro_torch.serving.jit_engine import JitIncrementalEngine, JitState
+from repro_torch.serving.spans import span
 
 
 class PositionHeadroomError(RuntimeError):
@@ -164,53 +169,54 @@ class SuggestionEngine:
         if n < 1:
             raise ValueError("cannot suggest over an empty document")
         n_cap = int(state.tokens.shape[0])
-        # Sequence order from the small host-side leaves; the heavy k/v
-        # gather (export_kv) runs only when the decode cache is rebuilt. Same
-        # sort key as export_kv (both stable), so the row order matches the
-        # export's on the rebuild path — garbage tail included.
-        host_valid = state.valid.cpu().numpy()
-        host_positions = state.positions.cpu().numpy()
-        order = np.argsort(np.where(host_valid, host_positions,
-                                    np.iinfo(np.int32).max), kind="stable")
-        seq_tokens = state.tokens.cpu().numpy()[order]
-        seq_positions = host_positions[order]
-        last_pos = int(seq_positions[n - 1])
-        if self.pos_headroom(last_pos) < n_new:
-            raise PositionHeadroomError(
-                f"{n_new} continuation ids after position {last_pos} exceed "
-                f"the embedding pool of {self.params['embed']['pos'].shape[0]}"
-                " — defragment the document first")
+        with span("export", key):
+            # Sequence order from the small host-side leaves; the heavy k/v
+            # gather (export_kv) runs only when the decode cache is rebuilt.
+            # Same sort key as export_kv (both stable), so the row order
+            # matches the export's on the rebuild path — garbage tail included.
+            host_valid = state.valid.cpu().numpy()
+            host_positions = state.positions.cpu().numpy()
+            order = np.argsort(np.where(host_valid, host_positions,
+                                        np.iinfo(np.int32).max), kind="stable")
+            seq_tokens = state.tokens.cpu().numpy()[order]
+            seq_positions = host_positions[order]
+            last_pos = int(seq_positions[n - 1])
+            if self.pos_headroom(last_pos) < n_new:
+                raise PositionHeadroomError(
+                    f"{n_new} continuation ids after position {last_pos} exceed "
+                    f"the embedding pool of {self.params['embed']['pos'].shape[0]}"
+                    " — defragment the document first")
 
-        def boundary(watermark: Optional[int]) -> int:
-            # first sequence row whose position id the edits may have
-            # invalidated; the last row is always recomputed so the refresh
-            # yields last-token logits
-            if watermark is None:
-                return n - 1
-            return int(np.searchsorted(seq_positions[:n], watermark, "left"))
+            def boundary(watermark: Optional[int]) -> int:
+                # first sequence row whose position id the edits may have
+                # invalidated; the last row is always recomputed so the
+                # refresh yields last-token logits
+                if watermark is None:
+                    return n - 1
+                return int(np.searchsorted(seq_positions[:n], watermark, "left"))
 
-        entry = self._cache.get(key) if key is not None else None
-        if entry is not None and (entry.n_cap != n_cap
-                                  or entry.n_new_cap != n_new_cap):
-            entry = None
-        if entry is not None:
-            p = min(boundary(invalid_from), n - 1)
-            # the reused prefix must be the exact rows the cache encodes
-            if not (np.array_equal(entry.positions[:p], seq_positions[:p])
-                    and np.array_equal(entry.tokens[:p], seq_tokens[:p])):
-                p = 0
-            caches = entry.caches
-        else:
-            p = min(boundary(export_invalid_from), n - 1)
-            # the export runs where the state rests; a state on another
-            # mesh device sends only its k/v over to the suggester's
-            exp = engine.export_kv(state)
-            k, v = exp.k.to(self.device), exp.v.to(self.device)
-            caches = T.caches_from_kv(
-                self.cfg, k[:, None], v[:, None],
-                torch.zeros((1,), dtype=torch.int32, device=self.device),
-                seq_len=n_cap + n_new_cap, dtype=self.dtype)
-            self.stats.rebuilds += 1
+            entry = self._cache.get(key) if key is not None else None
+            if entry is not None and (entry.n_cap != n_cap
+                                      or entry.n_new_cap != n_new_cap):
+                entry = None
+            if entry is not None:
+                p = min(boundary(invalid_from), n - 1)
+                # the reused prefix must be the exact rows the cache encodes
+                if not (np.array_equal(entry.positions[:p], seq_positions[:p])
+                        and np.array_equal(entry.tokens[:p], seq_tokens[:p])):
+                    p = 0
+                caches = entry.caches
+            else:
+                p = min(boundary(export_invalid_from), n - 1)
+                # the export runs where the state rests; a state on another
+                # mesh device sends only its k/v over to the suggester's
+                exp = engine.export_kv(state)
+                k, v = exp.k.to(self.device), exp.v.to(self.device)
+                caches = T.caches_from_kv(
+                    self.cfg, k[:, None], v[:, None],
+                    torch.zeros((1,), dtype=torch.int32, device=self.device),
+                    seq_len=n_cap + n_new_cap, dtype=self.dtype)
+                self.stats.rebuilds += 1
 
         # -------- re-prefill rows [p_eff, n) in one bucketed chunk. The
         # bucket extends the chunk *downward* (recomputing extra reusable
@@ -218,23 +224,25 @@ class SuggestionEngine:
         # full document underfills its bucket, the chunk covers the whole
         # exported buffer — the garbage tail rows land beyond the final
         # length counter, where attention never sees them.
-        M = next_pow2(n - p)
-        p_eff = n - M
-        if p_eff < 0:
-            p_eff, M = 0, n_cap
-        caches = T.set_cache_length(caches, p_eff)
-        chunk_t = torch.tensor(seq_tokens[p_eff:p_eff + M], device=self.device)[None]
-        chunk_p = torch.tensor(seq_positions[p_eff:p_eff + M], device=self.device)[None]
-        logits, caches = self._prefill(self.params, caches, chunk_t, chunk_p)
-        caches = T.set_cache_length(caches, n)
-        last_logits = logits[:, n - 1 - p_eff]  # [1, vocab]
+        with span("prefill", key):
+            M = next_pow2(n - p)
+            p_eff = n - M
+            if p_eff < 0:
+                p_eff, M = 0, n_cap
+            caches = T.set_cache_length(caches, p_eff)
+            chunk_t = torch.tensor(seq_tokens[p_eff:p_eff + M], device=self.device)[None]
+            chunk_p = torch.tensor(seq_positions[p_eff:p_eff + M], device=self.device)[None]
+            logits, caches = self._prefill(self.params, caches, chunk_t, chunk_p)
+            caches = T.set_cache_length(caches, n)
+            last_logits = logits[:, n - 1 - p_eff]  # [1, vocab]
 
         # -------- greedy continuation on fresh tail position ids
-        gen_pos = torch.tensor(last_pos + 1 + np.arange(n_new, dtype=np.int32),
-                               device=self.device)[None]
-        toks, caches = greedy_continue(self._step, self.params, caches,
-                                       last_logits, gen_pos, on_token=on_token)
-        out = toks[0].cpu().numpy().astype(np.int32)
+        with span("decode", key):
+            gen_pos = torch.tensor(last_pos + 1 + np.arange(n_new, dtype=np.int32),
+                                   device=self.device)[None]
+            toks, caches = greedy_continue(self._step, self.params, caches,
+                                           last_logits, gen_pos, on_token=on_token)
+            out = toks[0].cpu().numpy().astype(np.int32)
 
         if key is not None:
             self._cache[key] = _SuggestCache(

@@ -6,6 +6,7 @@ token for token, and the reuse counts (``SuggestStats``) and the server's
 suggestion counters equal the reference's — through a forced grow, a forced
 defrag (tiny pool) and a position-headroom defrag."""
 import dataclasses
+import time
 
 import pytest
 
@@ -20,6 +21,7 @@ from repro.serving.jit_engine import JitIncrementalEngine as RefEngine  # noqa: 
 from repro.serving.suggest import SuggestionEngine as RefSuggester  # noqa: E402
 from repro_torch.configs.vq_opt_125m import smoke_config as port_smoke  # noqa: E402
 from repro_torch.models.transformer import params_from_numpy  # noqa: E402
+from repro_torch.serving import spans  # noqa: E402
 from repro_torch.serving.batch_server import BatchServer  # noqa: E402
 from repro_torch.serving.jit_engine import JitIncrementalEngine  # noqa: E402
 from repro_torch.serving.suggest import (  # noqa: E402
@@ -172,6 +174,7 @@ def test_server_stream_matches_reference_and_oracle(setup):
     is appended to in a pool the size of the embedding table until its
     continuation would run past it (a headroom defrag and a retry)."""
     cfg, params, np_params, tp = setup
+    t0 = time.perf_counter()
     pcfg = port_smoke()
     rng = np.random.default_rng(11)
     kw = dict(edit_capacity=4, row_capacity=16, max_batch=4, min_doc_capacity=8)
@@ -219,11 +222,13 @@ def test_server_stream_matches_reference_and_oracle(setup):
                                      doc.valid, N_NEW, suggester=oracle)
             np.testing.assert_array_equal(got, want, err_msg=f"{did} edit {i}")
             np.testing.assert_array_equal(ours.suggestion(did), got)
+    # each real refresh is one "refresh" span, keyed by its document
+    refreshes = [s.key for s in spans.between(t0, time.perf_counter()) if s.name == "refresh"]
     for ref, ours in servers:
         for name in SUGGEST_COUNTERS:
             assert getattr(ours.stats, name) == getattr(ref.stats, name), name
         assert dataclasses.asdict(ours.suggest_stats) == dataclasses.asdict(ref.suggest_stats)
-        assert ours.stats.refresh_latency.count == ours.stats.suggest_refreshes
+        assert sum(k in ours.docs for k in refreshes) == ours.stats.suggest_refreshes
     tiny, big = servers[0][1], servers[1][1]
     assert tiny.stats.grows >= 1 and tiny.stats.defrags >= 1
     assert big.docs["h"].allocator.defrag_count >= 1  # the headroom path
